@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero without the final ``ok`` line):
+
+1. Print the card (``nvidia-smi`` name and power limit), the PyTorch and
+   CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
+   csrc`` with ``nvcc`` and print the build time and ``ptxas`` report.
+2. Kernels: hold each kernel against its plain PyTorch version on the
+   card at every shape the serving phase gives it (M = QG in
+   {4, 8, 16, 32, 64, 128}; tolerances of the CPU tests, identical skip
+   maps), then time kernel, plain version, a PyTorch library yardstick
+   and the bytes/flops bound at the main path's shapes (CUDA events).
+3. Serving: build a SIFT1M-shaped IVF index on the card (1M × 128 fp32
+   rows, nlist 1024, nprobe 16, top-10) and serve batches of
+   1, 8, 32, 128 and 160 queries through ``SpmdExecutor.search_batch`` on
+   the virtual meshes 1×1 and 2×2; every batch must equal the exact
+   ``search_oracle`` on the card, and the kernels' launch counters must
+   grow on that path while the plain versions stay at 0.
+4. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+
+It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+FP32_FLOP_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+TOL = 1e-4                    # the CPU tests' fp32 rule
+
+
+def log(**kw):
+    print(json.dumps(kw, default=float), flush=True)
+
+
+def bound_ms(nbytes: float, flops: float):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: the port's package is missing under {src}",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(src))
+    import numpy as np
+
+    from repro_torch._device import resolve_device
+    from repro_torch.config import HarmonyConfig
+    from repro_torch.core import build_ivf, search_oracle
+    from repro_torch.data import brute_force_topk, make_dataset, make_queries, recall_at_k
+    from repro_torch.kernels import _build, distance, ops, ref, topk_update
+    from repro_torch.serve import ExecutorConfig, SpmdExecutor
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = resolve_device(None)
+    kind = torch.cuda.get_device_name(0)
+    log(phase="env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        device=kind, count=torch.cuda.device_count())
+
+    # ---------------------------------------------------------- 1. build
+    t0 = time.perf_counter()
+    _build.load("partial_distance")
+    log(phase="build", seconds=time.perf_counter() - t0,
+        per_source=_build.build_seconds)
+    for name, text in _build.build_log.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"ptxas[{name}]: {line.strip()}", flush=True)
+
+    # ---------------------------------------------------------- 2. kernels
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def mk_dist(m, n, d, dead=True):
+        x = rng.normal(size=(n, d)).astype(np.float32)
+        q = rng.normal(size=(m, d)).astype(np.float32)
+        acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+        acc[rng.random((m, n)) < 0.3] = np.inf
+        if dead:
+            acc[:, 128:256] = np.inf          # one whole 128-wide tile dead
+        tau = rng.uniform(d * 0.5, d * 3.0, size=(m,)).astype(np.float32)
+        return [t(a) for a in (x, (x ** 2).sum(1), q, (q ** 2).sum(1), acc, tau)]
+
+    def mk_topk(m, c, k, ties):
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        if ties:
+            s = np.round(s / 10).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        s[0] = np.inf                          # an all-invalid row
+        ids = rng.integers(0, 10_000, size=(m, c)).astype(np.int32)
+        run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
+        run_i = rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32)
+        return [t(a) for a in (s, ids, run_s, run_i)]
+
+    def dist_err(got, want, tau):
+        got, want, tau = got.cpu().numpy(), want.cpu().numpy(), tau.cpu().numpy()[:, None]
+        boundary = np.abs(np.where(np.isfinite(want), want, tau) - tau) <= TOL * (1 + np.abs(tau))
+        bad = (np.isfinite(got) != np.isfinite(want)) & ~boundary
+        assert not bad.any(), "partial_distance: +inf pattern differs beyond ties"
+        both = np.isfinite(got) & np.isfinite(want)
+        np.testing.assert_allclose(got[both], want[both], rtol=TOL, atol=TOL)
+        return float(np.abs(got[both] - want[both]).max()) if both.any() else 0.0
+
+    errs = {"partial_distance_update": 0.0, "running_topk_update": 0.0}
+    n_checked = 0
+    # M = QG = qb / B: qb in {8, 32, 128} on 1x1 and 2x2 gives every M here
+    ring_ms = (4, 8, 16, 32, 64, 128)
+    for m in ring_ms:
+        for d in (32, 64, 128):
+            for metric in ("l2", "ip"):
+                for tiles in ((128, 128), (32, 64)):
+                    a = mk_dist(m, 256, d)
+                    got, skip = distance.partial_distance_update(
+                        *a, metric=metric, tile_m=tiles[0], tile_n=tiles[1])
+                    want = ref.partial_distance_update_ref(*a, metric=metric)
+                    torch.cuda.synchronize()
+                    errs["partial_distance_update"] = max(
+                        errs["partial_distance_update"], dist_err(got, want, a[5]))
+                    assert torch.equal(skip, ops._tile_skip_map(a[4], *tiles)), \
+                        "partial_distance: skip map differs"
+                    n_checked += 1
+    for m in ring_ms:
+        for k in (10, 40):
+            for ties in (False, True):
+                a = mk_topk(m, 256, k, ties)
+                gs, gi = topk_update.running_topk_update(*a, k=k)
+                ws, wi = ref.running_topk_ref(*a, k=k)
+                torch.cuda.synchronize()
+                assert torch.equal(gs, ws), "running_topk: scores differ"
+                assert torch.equal(gi, wi), "running_topk: ids differ"
+                # the ring's form: one chunk's ids broadcast over the rows
+                row_ids = a[1][0].expand(m, 256)
+                bs, bi = topk_update.running_topk_update(a[0], row_ids, a[2], a[3], k=k)
+                bws, bwi = ref.running_topk_ref(a[0], row_ids, a[2], a[3], k=k)
+                assert torch.equal(bs, bws) and torch.equal(bi, bwi), \
+                    "running_topk: broadcast ids differ"
+                errs["running_topk_update"] = max(
+                    errs["running_topk_update"],
+                    float((gs - ws)[torch.isfinite(ws)].abs().max().item())
+                    if torch.isfinite(ws).any() else 0.0)
+                n_checked += 1
+    log(phase="kernels_checked", cases=n_checked, max_abs_err=errs)
+
+    def time_ms(fn, reps=100):
+        """(device ms per call, host wall ms per call). The device time is
+        taken between CUDA events with the stream held in a spin while
+        all ``reps`` calls are queued, so launch overhead stays out of it;
+        the wall time per call includes it."""
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / reps * 1e3
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e8))          # ~0.1 s: the host queues ahead
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / reps, call_ms
+
+    timed = {}
+    # the main path's shapes: QG = qb/B rows per group, chunk = 256, Db = 128/B
+    for (m, d, label) in ((128, 128, "mesh1x1_qb128"), (64, 64, "mesh2x2_qb128")):
+        a = mk_dist(m, 256, d)
+        alive_tiles = int((ops._tile_skip_map(a[4], 128, 128) == 0).sum())
+        base = a[4] + a[3][:, None] + a[1][None, :]
+        (ms, call), (plain, plain_call), (lib, lib_call) = (
+            time_ms(lambda: distance.partial_distance_update(*a)),
+            time_ms(lambda: ref.partial_distance_update_ref(*a)),
+            time_ms(lambda: torch.addmm(base, a[2], a[0].T, alpha=-2)))
+        nbytes = 4 * (256 * d + 256 + m * d + m + 2 * m * 256 + m) + 4 * 2
+        flops = 2 * min(m, 128) * 128 * d * alive_tiles + 4 * m * 256
+        b, by = bound_ms(nbytes, flops)
+        row = dict(kernel="partial_distance_update", shape=label, M=m, N=256, Db=d,
+                   kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                   bound_by=by, kernel_call_ms=call, plain_call_ms=plain_call,
+                   library_call_ms=lib_call, card=smi)
+        log(**row)
+        timed.setdefault("partial_distance_update", row)
+    for (m, label) in ((128, "mesh1x1_qb128"), (64, "mesh2x2_qb128")):
+        k, c = 10, 256
+        a = mk_topk(m, c, k, False)
+        ids_row = a[1][0].expand(m, c)
+        cat = torch.cat([a[2], a[0]], dim=1)
+        (ms, call), (plain, plain_call), (lib, lib_call) = (
+            time_ms(lambda: topk_update.running_topk_update(a[0], ids_row, a[2], a[3], k=k)),
+            time_ms(lambda: ref.running_topk_ref(a[0], ids_row, a[2], a[3], k=k)),
+            time_ms(lambda: torch.topk(cat, k, dim=1, largest=False)))
+        nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
+        b, by = bound_ms(nbytes, m * k * c)
+        row = dict(kernel="running_topk_update", shape=label, M=m, C=c, K=k,
+                   kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                   bound_by=by, kernel_call_ms=call, plain_call_ms=plain_call,
+                   library_call_ms=lib_call, card=smi)
+        log(**row)
+        timed.setdefault("running_topk_update", row)
+
+    # ---------------------------------------------------------- 3. serving
+    nb, nlist, ncomp = 1_000_000, 1024, 256
+    t0 = time.perf_counter()
+    ds = make_dataset(nb=nb, dim=128, n_components=ncomp, spread=0.6, seed=0)
+    sizes = (1, 8, 32, 128, 160)
+    q_all = make_queries(ds, nq=sum(sizes), skew=0.3, seed=1)
+    t_data = time.perf_counter() - t0
+    cfg = HarmonyConfig(dim=128, nlist=nlist, nprobe=16, topk=10)
+    t0 = time.perf_counter()
+    index = build_ivf(ds.x, cfg)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = search_oracle(index, q_all)
+    true_idx, _ = brute_force_topk(ds.x, q_all, 10)
+    log(phase="index", nb=nb, dim=128, nlist=nlist, nprobe=16, topk=10,
+        data_s=t_data, build_s=t_build, oracle_and_truth_s=time.perf_counter() - t0,
+        resident_mb=index.x.numel() * 4 / 2 ** 20,
+        oracle_recall_at_10=recall_at_k(oracle.ids, true_idx))
+
+    def check(res, lo, hi):
+        want_s, want_i = oracle.scores[lo:hi], oracle.ids[lo:hi]
+        finite = np.isfinite(want_s)
+        assert res.scores.shape == want_s.shape and res.ids.dtype == np.int64
+        assert np.array_equal(np.isfinite(res.scores), finite), "valid pattern differs"
+        np.testing.assert_allclose(res.scores[finite], want_s[finite], rtol=1e-3, atol=1e-3)
+        diff = (res.ids != want_i) & finite
+        for r in np.unique(np.nonzero(diff)[0]):
+            assert np.allclose(np.sort(res.scores[r]), np.sort(want_s[r]),
+                               rtol=1e-3, atol=1e-3), (res.ids[r], want_i[r])
+
+    served = {"partial_distance_update": 0, "running_topk_update": 0}
+    for mesh in ((1, 1), (2, 2)):
+        mb_before = torch.cuda.memory_allocated() / 2 ** 20
+        ex = SpmdExecutor(index, ExecutorConfig(d_blocks=mesh[1]), mesh=mesh)
+        executor_mb = torch.cuda.memory_allocated() / 2 ** 20 - mb_before
+        ops.reset_launch_counts()
+        t_mesh = time.perf_counter()
+        lo, walls = 0, {}
+        for n in sizes:
+            before = ops.launch_counts()
+            res = ex.search_batch(q_all[lo:lo + n])
+            after = ops.launch_counts()
+            walls[n] = res.stats["wall_s"] * 1e6
+            check(res, lo, lo + n)
+            log(phase="serve", mesh=f"{mesh[0]}x{mesh[1]}", nq=n,
+                wall_ms=res.stats["wall_s"] * 1e3, buckets=res.stats["buckets"],
+                splits=res.stats["splits"],
+                tile_skip_frac=res.stats["tile_skipped"] / max(res.stats["tile_total"], 1),
+                recall_at_10=recall_at_k(res.ids, true_idx[lo:lo + n]),
+                launches={k: after[k] - before[k] for k in after})
+            lo += n
+        counts = ops.launch_counts()
+        log(phase="serve_path", mesh=f"{mesh[0]}x{mesh[1]}",
+            seconds=time.perf_counter() - t_mesh, counts=counts,
+            executor_resident_mb=executor_mb,
+            summary=ex.stats_summary())
+        assert counts["partial_distance_update"] > 0, "distance kernel never launched"
+        assert counts["running_topk_update"] > 0, "top-K kernel never launched"
+        assert counts["partial_distance_update_ref"] == 0, "plain distance ran"
+        assert counts["running_topk_ref"] == 0, "plain top-K ran"
+        for k in served:
+            served[k] += counts[k]
+        # where the time of one 128-query batch goes: device busy share
+        lo128 = sum(sizes[:3])
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = ex.search_batch(q_all[lo128:lo128 + 128])
+        busy_us = {}      # device kernels only (an aten op repeats its kernels' time)
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                busy_us[ev.key[:60]] = ev.self_device_time_total
+        wall_us = walls[128]             # the same batch, unprofiled
+        top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]
+        log(phase="profile", mesh=f"{mesh[0]}x{mesh[1]}", nq=128,
+            wall_ms=wall_us / 1e3, profiled_wall_ms=res.stats["wall_s"] * 1e3,
+            device_busy_ms=sum(busy_us.values()) / 1e3,
+            device_idle_share=(1 - sum(busy_us.values()) / wall_us
+                               if busy_us else "not measured"),
+            top_device_us=dict(top))
+        del ex
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 4. report
+    sources = {
+        "partial_distance_update": ("src/repro_torch/kernels/csrc/partial_distance.cu",
+                                    "src/repro/kernels/distance.py:127"),
+        "running_topk_update": ("src/repro_torch/kernels/csrc/topk_update.cu",
+                                "src/repro/kernels/topk_update.py:93"),
+    }
+    kernels = []
+    for name, (source, replaces) in sources.items():
+        row = timed[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=served[name], max_abs_err=errs[name], ms=row["kernel_ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

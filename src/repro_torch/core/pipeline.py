@@ -1,0 +1,261 @@
+"""The dimension-ring search on a virtual V × B mesh on one device (§4.3).
+
+The reference runs the ring under ``shard_map``: device (v, b) owns
+dimension block b of vector shard v, query groups' accumulators rotate
+round the ``model`` axis with ``ppermute``, and ``all_gather`` +
+``lax.top_k`` merge the results. Here the same V × B grid is a set of
+explicit loops on one GPU, with the same semantics:
+
+* shard v's ring starts at ``offset_v = v % B``; in stage t the device
+  (v, b) scores group ``(b − t − offset_v) mod B``, so group g of shard v
+  visits blocks ``(g + offset_v + t) mod B`` for t = 0 … B−1;
+* a chunk's entry accumulator is the probe mask (0 where the row's
+  cluster is probed, +inf elsewhere); τ travels with its group unchanged
+  within a chunk and tightens between chunks to
+  ``min(tau0, kth best so far)``;
+* each (chunk, stage) is one :func:`kernels.ops.partial_distance_update`
+  and each chunk ends with one :func:`kernels.ops.running_topk_update`;
+* the cross-shard merge is a stable sort, which orders ties by index as
+  ``lax.top_k`` does, so the result does not depend on the geometry.
+
+Stats sum the tile skip maps over every (v, b, chunk, stage), as the
+reference's two ``psum``\\ s do.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.index import ShardedCorpus, dim_block_bounds
+from repro_torch.kernels import ops as kops
+
+
+@dataclass(frozen=True)
+class SpmdConfig:
+    """Static geometry of the ring search step.
+
+    Only ``n_pods=1``, ``x_dtype="float32"`` and ``precision="fp32"`` are
+    carried by this slice; other values raise ``NotImplementedError``.
+    ``use_pallas`` is kept for signature parity: the route is chosen by
+    the tensors' device (kernel on CUDA, plain version on the CPU), and
+    ``False`` is not supported.
+    """
+
+    v_shards: int          # vector shards
+    d_blocks: int          # dimension blocks
+    n_pods: int = 1
+    qb: int = 64           # queries per step
+    cap: int = 1024        # padded rows per shard
+    dim: int = 128         # padded to d_blocks * db
+    nprobe: int = 8
+    k: int = 10
+    chunk: int = 512       # candidate rows scored per ring pass
+    metric: str = "l2"
+    prune: bool = True
+    x_dtype: str = "float32"
+    precision: str = "fp32"
+    use_pallas: Optional[bool] = True
+    tile_m: int = 128
+    tile_n: int = 128
+    tile_k: int = 128
+
+    @property
+    def qg(self) -> int:
+        assert self.qb % self.d_blocks == 0, (self.qb, self.d_blocks)
+        return self.qb // self.d_blocks
+
+    @property
+    def db(self) -> int:
+        assert self.dim % self.d_blocks == 0, (self.dim, self.d_blocks)
+        return self.dim // self.d_blocks
+
+    @property
+    def n_chunks(self) -> int:
+        assert self.cap % self.chunk == 0, (self.cap, self.chunk)
+        return self.cap // self.chunk
+
+    def __post_init__(self):
+        if self.precision != "fp32":
+            raise NotImplementedError(f"precision={self.precision!r}")
+        if self.x_dtype != "float32":
+            raise NotImplementedError(f"x_dtype={self.x_dtype!r}")
+        if self.n_pods != 1:
+            raise NotImplementedError(f"n_pods={self.n_pods}")
+        if self.use_pallas is False:
+            raise NotImplementedError(
+                "use_pallas=False: the route follows the tensors' device")
+        if self.metric not in ("l2", "ip"):
+            raise ValueError(self.metric)
+
+
+# ---------------------------------------------------------------------------
+# Input packaging
+# ---------------------------------------------------------------------------
+
+
+def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig):
+    """Pack the sharded corpus into the step's resident arrays, in the
+    reference's layout, on the corpus's device:
+
+      x_blocks   [V, cap, D_pad]  f32
+      xn2_blocks [B, V, cap]      f32
+      cluster_ids[V, cap]         i32
+      row_ids    [V, cap]         i32
+    """
+    V, B = scfg.v_shards, scfg.d_blocks
+    cap, D = scfg.cap, scfg.dim
+    if corpus.plan.v_shards != V:
+        raise ValueError((corpus.plan.v_shards, V))
+    xs = corpus.x_shard
+    if xs.shape[1] > cap:
+        raise ValueError((tuple(xs.shape), cap))
+    dev = xs.device
+    n = xs.shape[1]
+
+    cluster_ids = torch.full((V, cap), -1, dtype=torch.int32, device=dev)
+    cluster_ids[:, :n] = torch.as_tensor(corpus.cluster_shard, device=dev)
+    row_ids = torch.full((V, cap), -1, dtype=torch.int32, device=dev)
+    row_ids[:, :n] = torch.as_tensor(corpus.ids_shard.astype(np.int32), device=dev)
+
+    x_blocks = torch.zeros((V, cap, D), dtype=torch.float32, device=dev)
+    x_blocks[:, :n, : xs.shape[2]] = xs
+    xn2_blocks = torch.zeros((B, V, cap), dtype=torch.float32, device=dev)
+    if corpus.xnorm2_blk.shape[1] == B:
+        # zero padding (rows or dims) does not change block norms
+        xn2_blocks[:, :, :n] = corpus.xnorm2_blk.permute(1, 0, 2)
+    else:
+        for b, (lo, hi) in enumerate(dim_block_bounds(D, B)):
+            seg = x_blocks[:, :, lo:hi]
+            xn2_blocks[b] = (seg * seg).sum(2)
+    return dict(x_blocks=x_blocks, xn2_blocks=xn2_blocks,
+                cluster_ids=cluster_ids, row_ids=row_ids)
+
+
+def resident_arrays(arrays: dict, scfg: SpmdConfig) -> dict:
+    """Re-lay :func:`build_corpus_arrays`'s dict block-major for the
+    virtual mesh: x_blk [V, B, cap, Db] and xn2_blk [V, B, cap], so that
+    every (shard, block, chunk) slice the kernels read is contiguous."""
+    V, B, db = scfg.v_shards, scfg.d_blocks, scfg.db
+    x = arrays["x_blocks"]
+    cap = x.shape[1]
+    return dict(
+        x_blk=x.reshape(V, cap, B, db).permute(0, 2, 1, 3).contiguous(),
+        xn2_blk=arrays["xn2_blocks"].permute(1, 0, 2).contiguous(),
+        cluster_ids=arrays["cluster_ids"].contiguous(),
+        row_ids=arrays["row_ids"].contiguous(),
+    )
+
+
+def build_query_arrays(
+    q: np.ndarray, scfg: SpmdConfig, probes: np.ndarray, tau0: np.ndarray,
+):
+    """Pack one query batch (host numpy), padded to ``scfg.qb``:
+
+      queries [QB, D_pad] f32, probes [QB, P] i32 (-2 = match nothing),
+      tau0 [QB] f32 (-inf on pad rows, so they prune everything).
+    """
+    qb, D = scfg.qb, scfg.dim
+    queries = np.zeros((qb, D), np.float32)
+    nq = min(q.shape[0], qb)
+    queries[:nq, : q.shape[1]] = q[:nq]
+    probes_pad = np.zeros((qb, probes.shape[1]), np.int32)
+    probes_pad[:nq] = probes[:nq]
+    probes_pad[nq:] = -2
+    tau_pad = np.full((qb,), -np.inf, np.float32)
+    tau_pad[:nq] = tau0[:nq]
+    return dict(queries=queries, probes=probes_pad, tau0=tau_pad)
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+
+def gather_local_candidates(rows, x_blk, xn2_blk, cluster_ids, row_ids):
+    """Device-side gather of probed-cluster candidates into a padded static
+    buffer, for every shard at once.
+
+    ``rows`` [V, cap_b] int64 indexes each shard's resident rows, -1 = pad;
+    x_blk [V, B, cap, Db], xn2_blk [V, B, cap], cluster_ids/row_ids
+    [V, cap] as :func:`resident_arrays` lays them out. Pad slots re-read
+    row 0 but get cluster id -1 (match no probe), norm 0 and id -1.
+    Returns (x_c [V, B, cap_b, Db], xn2_c [V, B, cap_b], cl_c, id_c).
+    """
+    V, B, cap_full, db = x_blk.shape
+    keep = rows >= 0
+    safe = rows.clamp(0, cap_full - 1)
+    base = (torch.arange(V * B, device=rows.device) * cap_full).view(V, B, 1)
+    flat = base + safe[:, None, :]                       # [V, B, cap_b]
+    x_c = x_blk.reshape(V * B * cap_full, db)[flat]
+    xn2_c = torch.where(keep[:, None, :], xn2_blk.reshape(-1)[flat], 0.0)
+    cl_c = torch.where(keep, torch.gather(cluster_ids, 1, safe), -1)
+    id_c = torch.where(keep, torch.gather(row_ids, 1, safe), -1)
+    return x_c, xn2_c, cl_c, id_c
+
+
+def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
+                      q_blk, probes, tau0):
+    """The ring search over the whole virtual mesh.
+
+    x_blk [V, B, cap, Db], xn2_blk [V, B, cap], cluster_ids/row_ids
+    [V, cap] (cap = ``scfg.cap``), q_blk [qb, D_pad] f32, probes [qb, P]
+    i32, tau0 [qb] f32, all on one device. Returns (scores [qb, K],
+    ids [qb, K] i32, stats [2] int64 = (tiles skipped, tiles scored)).
+    """
+    V, B, QG, K = scfg.v_shards, scfg.d_blocks, scfg.qg, scfg.k
+    chunk, n_chunks, db = scfg.chunk, scfg.n_chunks, scfg.db
+    dev = x_blk.device
+    # q[g, b] = rows of group g restricted to dimension block b
+    q = q_blk.reshape(B, QG, B, db).permute(0, 2, 1, 3).contiguous()
+    qn2 = (q * q).sum(3)                                   # [g, b, QG]
+    skips = []
+    shard_s, shard_i = [], []
+    for v in range(V):
+        offset = v % B
+        grp_s, grp_i = [], []
+        for g in range(B):
+            probes_g = probes[g * QG:(g + 1) * QG]
+            tau_g0 = tau0[g * QG:(g + 1) * QG]
+            run_s = torch.full((QG, K), torch.inf, dtype=torch.float32, device=dev)
+            run_i = torch.full((QG, K), -1, dtype=torch.int32, device=dev)
+            for c in range(n_chunks):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                cl_c = cluster_ids[v, sl]
+                mask = (probes_g[:, :, None] == cl_c[None, None, :]).any(1)
+                tau = torch.minimum(tau_g0, run_s[:, -1])
+                acc = torch.where(mask, 0.0, torch.inf)
+                for t in range(B):
+                    b = (g + offset + t) % B
+                    acc, skip = kops.partial_distance_update(
+                        x_blk[v, b, sl], xn2_blk[v, b, sl], q[g, b], qn2[g, b],
+                        acc, tau, prune=scfg.prune, metric=scfg.metric,
+                        tile_m=scfg.tile_m, tile_n=scfg.tile_n,
+                        tile_k=scfg.tile_k,
+                    )
+                    skips.append(skip.reshape(-1))
+                ids_c = row_ids[v, sl].expand(QG, chunk)
+                run_s, run_i = kops.running_topk_update(acc, ids_c, run_s,
+                                                        run_i, k=K)
+            grp_s.append(run_s)
+            grp_i.append(run_i)
+        shard_s.append(torch.cat(grp_s))
+        shard_i.append(torch.cat(grp_i))
+
+    gs, gi = shard_s[0], shard_i[0]
+    if V > 1:
+        # merge across shards: [qb, V·K] in shard-major order, stable sort
+        as_ = torch.stack(shard_s, dim=1).reshape(scfg.qb, V * K)
+        ai = torch.stack(shard_i, dim=1).reshape(scfg.qb, V * K)
+        s, pos = torch.sort(as_, dim=1, stable=True)
+        gs = s[:, :K]
+        gi = torch.gather(ai, 1, pos[:, :K])
+    skipped = (torch.cat(skips).sum() if skips
+               else torch.zeros((), dtype=torch.int64, device=dev))
+    total = sum(int(s.numel()) for s in skips)
+    stats = torch.stack([skipped.to(torch.int64),
+                         torch.tensor(total, dtype=torch.int64, device=dev)])
+    return gs, gi, stats

@@ -1,0 +1,100 @@
+"""Wrapper of the CUDA partial-distance kernel (``csrc/partial_distance.cu``).
+
+The port of the Pallas kernel ``repro/kernels/distance.py``. This wrapper
+takes CUDA tensors only and launches the kernel or raises; the dispatch
+by device lives in :mod:`repro_torch.kernels.ops`. The kernel is built
+at the first call, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+_SIG = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _lib():
+    lib = _build.load("partial_distance")
+    fn = lib.partial_distance_update_f32
+    if fn.argtypes is None:
+        fn.argtypes = _SIG
+        fn.restype = ctypes.c_int
+        lib.partial_distance_error_string.argtypes = [ctypes.c_int]
+        lib.partial_distance_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def partial_distance_update(
+    x: torch.Tensor,       # [N, Db] f32
+    xn2: torch.Tensor,     # [N]
+    q: torch.Tensor,       # [M, Db] f32
+    qn2: torch.Tensor,     # [M]
+    acc: torch.Tensor,     # [M, N] f32, +inf = pruned
+    tau: torch.Tensor,     # [M]
+    *,
+    prune: bool = True,
+    metric: str = "l2",
+    tile_m: int = 128,
+    tile_n: int = 128,
+    tile_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (acc' [M, N] f32, tile_skipped [m_tiles, n_tiles] int32).
+
+    ``tile_m``/``tile_n`` set the skip map's granularity (one CTA per
+    tile). ``tile_k`` is accepted for signature parity; the kernel stages
+    the contraction 32 columns at a time and subtracts the whole dot once,
+    which is the TPU kernel's order whenever Db ≤ tile_k.
+    """
+    if metric not in ("l2", "ip"):
+        raise ValueError(metric)
+    if tile_m <= 0 or tile_n <= 0 or tile_k <= 0:
+        raise ValueError((tile_m, tile_n, tile_k))
+    n, d = x.shape
+    m = q.shape[0]
+    _check("x", x, (n, d))
+    _check("xn2", xn2, (n,))
+    _check("q", q, (m, d))
+    _check("qn2", qn2, (m,))
+    _check("acc", acc, (m, n))
+    _check("tau", tau, (m,))
+    devs = {t.device for t in (x, xn2, q, qn2, acc, tau)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    skip = torch.empty((-(-m // tile_m), -(-n // tile_n)), dtype=torch.int32,
+                       device=x.device)
+    if m == 0 or n == 0:
+        return out, skip.fill_(1)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.partial_distance_update_f32(
+            x.data_ptr(), xn2.data_ptr(), q.data_ptr(), qn2.data_ptr(),
+            acc.data_ptr(), tau.data_ptr(), out.data_ptr(), skip.data_ptr(),
+            m, n, d, tile_m, tile_n, int(metric == "l2"), int(bool(prune)),
+            stream,
+        )
+    if err:
+        raise RuntimeError("partial_distance_update launch failed: "
+                           + lib.partial_distance_error_string(err).decode())
+    partial_distance_update.launches += 1
+    return out, skip
+
+
+partial_distance_update.launches = 0

@@ -1,0 +1,88 @@
+"""Dispatch between the CUDA kernels and their plain versions.
+
+A CUDA tensor goes to the kernel (which launches or raises); a CPU
+tensor goes to the plain PyTorch version of :mod:`repro_torch.kernels.ref`.
+Nothing else chooses the route, and nothing falls back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import distance, ref, topk_update
+
+
+def partial_distance_update(
+    x: torch.Tensor,
+    xn2: torch.Tensor,
+    q: torch.Tensor,
+    qn2: torch.Tensor,
+    acc: torch.Tensor,
+    tau: torch.Tensor,
+    *,
+    prune: bool = True,
+    metric: str = "l2",
+    tile_m: int = 128,
+    tile_n: int = 128,
+    tile_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """acc' = acc + partial_distance_block, pruned against τ.
+
+    Returns (acc' [M,N] f32, tile_skip_map [m_tiles, n_tiles] int32).
+    """
+    if x.is_cuda:
+        return distance.partial_distance_update(
+            x, xn2, q, qn2, acc, tau, prune=prune, metric=metric,
+            tile_m=tile_m, tile_n=tile_n, tile_k=tile_k,
+        )
+    out = ref.partial_distance_update_ref(
+        x, xn2, q, qn2, acc, tau, prune=prune, metric=metric
+    )
+    return out, _tile_skip_map(acc, tile_m, tile_n)
+
+
+def _tile_skip_map(acc: torch.Tensor, tile_m: int, tile_n: int) -> torch.Tensor:
+    """Which [tile_m, tile_n] tiles were fully pruned on entry (post-hoc)."""
+    m, n = acc.shape
+    mp, np_ = -(-m // tile_m) * tile_m, -(-n // tile_n) * tile_n
+    a = F.pad(acc, (0, np_ - n, 0, mp - m), value=float("inf"))
+    a = a.reshape(mp // tile_m, tile_m, np_ // tile_n, tile_n)
+    alive = torch.isfinite(a).any(dim=3).any(dim=1)
+    return (~alive).to(torch.int32)
+
+
+def running_topk_update(
+    scores: torch.Tensor,      # [M, C] f32, +inf = invalid
+    ids: torch.Tensor,         # [M, C] i32
+    run_s: torch.Tensor,       # [M, K] f32 ascending
+    run_i: torch.Tensor,       # [M, K] i32
+    *,
+    k: int,
+    tile_m: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge a candidate chunk into the per-query running top-K."""
+    if scores.is_cuda:
+        return topk_update.running_topk_update(
+            scores, ids, run_s, run_i, k=k, tile_m=tile_m
+        )
+    return ref.running_topk_ref(scores, ids, run_s, run_i, k=k)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches and plain-version calls since the last reset."""
+    return {
+        "partial_distance_update": distance.partial_distance_update.launches,
+        "running_topk_update": topk_update.running_topk_update.launches,
+        "partial_distance_update_ref": ref.partial_distance_update_ref.calls,
+        "running_topk_ref": ref.running_topk_ref.calls,
+    }
+
+
+def reset_launch_counts() -> None:
+    distance.partial_distance_update.launches = 0
+    topk_update.running_topk_update.launches = 0
+    ref.partial_distance_update_ref.calls = 0
+    ref.running_topk_ref.calls = 0

@@ -1,0 +1,69 @@
+"""Plain PyTorch versions of the two CUDA kernels of the ring.
+
+They define the semantics the kernels must match, run the CPU path of
+``kernels.ops``, and are what ``chip_smoke.py`` holds each kernel against
+on the card. Each keeps a plain integer count of its calls
+(``<function>.calls``), so a run can show that the serving path never
+took them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def partial_distance_update_ref(
+    x: torch.Tensor,       # [N, Db]  candidate rows, this dimension block
+    xn2: torch.Tensor,     # [N]      per-row squared norm of this block
+    q: torch.Tensor,       # [M, Db]  query rows, this dimension block
+    qn2: torch.Tensor,     # [M]      per-query squared norm of this block
+    acc: torch.Tensor,     # [M, N]   running partial distances; +inf = pruned
+    tau: torch.Tensor,     # [M]      per-query pruning threshold
+    *,
+    prune: bool = True,
+    metric: str = "l2",
+) -> torch.Tensor:
+    """acc' = acc + d_b²  (or −partial dot), then prune acc' > τ → +inf.
+
+    +inf entries stay +inf (pruned pairs never resurrect).
+    """
+    partial_distance_update_ref.calls += 1
+    xf = x.to(torch.float32)
+    qf = q.to(torch.float32)
+    if metric == "l2":
+        part = (qn2.to(torch.float32)[:, None] - 2.0 * (qf @ xf.T)
+                + xn2.to(torch.float32)[None, :])
+    elif metric == "ip":
+        part = -(qf @ xf.T)
+    else:
+        raise ValueError(metric)
+    out = acc.to(torch.float32) + part
+    out = torch.where(torch.isfinite(acc), out, torch.inf)
+    if prune:
+        out = torch.where(out > tau.to(torch.float32)[:, None], torch.inf, out)
+    return out
+
+
+partial_distance_update_ref.calls = 0
+
+
+def masked_topk_ref(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Ascending top-k of finite scores per row; +inf/invalid → (-1, +inf).
+    Ties go to the lowest column, as ``lax.top_k`` orders them."""
+    s, pos = torch.sort(scores, dim=1, stable=True)
+    top_scores = s[:, :k]
+    top_ids = torch.gather(ids, 1, pos[:, :k])
+    top_ids = torch.where(torch.isfinite(top_scores), top_ids, -1)
+    return top_scores, top_ids
+
+
+def running_topk_ref(scores, ids, run_s, run_i, k: int):
+    """Merge candidate (scores, ids) into the running ascending top-K.
+    scores [M,C] (+inf invalid), run_s/run_i [M,K]. Returns (s', i')."""
+    running_topk_ref.calls += 1
+    cat_s = torch.cat([run_s, scores], dim=1)
+    cat_i = torch.cat([run_i, ids.to(run_i.dtype)], dim=1)
+    return masked_topk_ref(cat_s, cat_i, k)
+
+
+running_topk_ref.calls = 0

@@ -1,0 +1,276 @@
+"""The port's kernel layer against the JAX package.
+
+On the CPU the plain PyTorch versions (``repro_torch.kernels.ref``) are
+held against the reference's jnp oracles and its Pallas kernels in
+interpret mode, over the sweeps of ``tests/kernels/``. The CUDA kernels
+themselves run only on the card: the ``cuda`` case holds each against its
+plain version there and skips elsewhere.
+
+Tolerances are the reference's fp32 rule: finite entries agree at
+rtol = atol = 1e-4; the +inf pattern matches except where the value is
+within 1e-4·(1 + |τ|) of τ (the two sides group the sum differently);
+skip maps are equal; top-K ids are equal except across exact score ties.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as r_ref
+from repro.kernels.distance import partial_distance_update as pallas_distance
+from repro.kernels.ops import _tile_skip_map as r_skip_map
+from repro.kernels.topk_update import running_topk_update as pallas_topk
+from repro_torch.kernels import distance, ops, ref, topk_update
+
+ROOT = Path(__file__).resolve().parent.parent
+TOL = 1e-4
+
+
+def _mk(m, n, d, seed=0, frac_pruned=0.3, dead_tile=None):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(m, d)).astype(np.float32)
+    xn2 = (x ** 2).sum(1)
+    qn2 = (q ** 2).sum(1)
+    acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+    acc[rng.random((m, n)) < frac_pruned] = np.inf
+    if dead_tile is not None:
+        acc[:, dead_tile] = np.inf
+    tau = rng.uniform(d * 0.5, d * 3.0, size=(m,)).astype(np.float32)
+    return x, xn2, q, qn2, acc, tau
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def assert_distance_close(got, want, tau):
+    got, want = np.asarray(got), np.asarray(want)
+    tau = np.asarray(tau)[:, None]
+    boundary = np.abs(np.where(np.isfinite(want), want, tau) - tau) <= TOL * (
+        1 + np.abs(tau))
+    mismatch_inf = np.isfinite(got) != np.isfinite(want)
+    assert not (mismatch_inf & ~boundary).any(), "inf pattern diverges beyond fp ties"
+    both = np.isfinite(got) & np.isfinite(want)
+    np.testing.assert_allclose(got[both], want[both], rtol=TOL, atol=TOL)
+
+
+def assert_topk_close(gs, gi, ws, wi):
+    gs, gi, ws, wi = map(np.asarray, (gs, gi, ws, wi))
+    np.testing.assert_allclose(gs, ws, rtol=1e-6)
+    diff = gi != wi
+    if diff.any():
+        r, c = np.nonzero(diff)
+        assert np.allclose(gs[r, c], ws[r, c]), "id mismatch beyond ties"
+
+
+SHAPES = [
+    (8, 16, 32),      # all smaller than tiles
+    (128, 128, 128),  # exact tile multiples
+    (130, 257, 96),   # ragged everything
+    (1, 300, 64),     # single query
+    (64, 1, 128),     # single candidate
+    (64, 256, 64),    # the ring's shape at B = 2
+]
+
+
+@pytest.mark.parametrize("m,n,d", SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("prune", [True, False])
+def test_distance_plain_matches_reference_and_pallas(m, n, d, metric, prune):
+    arrs = _mk(m, n, d, seed=m * 31 + n, dead_tile=slice(0, 64))
+    tau = arrs[5]
+    got, skip = ops.partial_distance_update(
+        *_t(*arrs), prune=prune, metric=metric, tile_m=64, tile_n=64, tile_k=64)
+    want = r_ref.partial_distance_update_ref(
+        *map(jnp.asarray, arrs), prune=prune, metric=metric)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    assert_distance_close(got.numpy(), want, tau)
+    p_out, p_skip = pallas_distance(
+        *map(jnp.asarray, arrs), prune=prune, metric=metric, interpret=True,
+        tile_m=64, tile_n=64, tile_k=64)
+    assert_distance_close(got.numpy(), p_out, tau)
+    assert skip.dtype == torch.int32
+    np.testing.assert_array_equal(skip.numpy(), np.asarray(p_skip))
+
+
+@pytest.mark.parametrize("m,n,tm,tn", [(8, 16, 128, 128), (130, 257, 64, 32),
+                                       (64, 256, 128, 128), (5, 300, 4, 100)])
+def test_tile_skip_map_matches_reference(m, n, tm, tn):
+    rng = np.random.default_rng(m + n)
+    acc = rng.uniform(size=(m, n)).astype(np.float32)
+    acc[rng.random((m, n)) < 0.97] = np.inf
+    acc[:, : min(n, tn)] = np.inf
+    got = ops._tile_skip_map(torch.from_numpy(acc), tm, tn)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(r_skip_map(jnp.asarray(acc), tm, tn)))
+
+
+def test_skip_map_marks_dead_tiles():
+    m, n, d, t = 64, 128, 32, 32
+    x, xn2, q, qn2, acc, tau = _mk(m, n, d, frac_pruned=0.0)
+    acc[:, :t] = np.inf
+    got, skip = ops.partial_distance_update(*_t(x, xn2, q, qn2, acc, tau + 1e9),
+                                            tile_m=t, tile_n=t, tile_k=t)
+    skip = skip.numpy()
+    assert skip.shape == (m // t, n // t)
+    assert (skip[:, 0] == 1).all() and (skip[:, 1:] == 0).all()
+    assert (~torch.isfinite(got[:, :t])).all()
+
+
+def test_inf_never_resurrects_and_prune_false_keeps_finite():
+    x, xn2, q, qn2, acc, tau = _mk(32, 48, 64, frac_pruned=0.5)
+    got, _ = ops.partial_distance_update(*_t(x, xn2, q, qn2, acc, tau + 1e9))
+    assert (~torch.isfinite(got))[torch.from_numpy(~np.isfinite(acc))].all()
+    x, xn2, q, qn2, acc, tau = _mk(32, 48, 64, frac_pruned=0.0)
+    got, _ = ops.partial_distance_update(*_t(x, xn2, q, qn2, acc, tau * 0),
+                                         prune=False)
+    assert torch.isfinite(got).all()
+
+
+def test_accumulation_reconstructs_exact_distance():
+    rng = np.random.default_rng(0)
+    m, n, d, B = 16, 40, 96, 4
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(m, d)).astype(np.float32)
+    acc = torch.zeros((m, n))
+    tau = torch.full((m,), torch.inf)
+    per = d // B
+    for b in range(B):
+        xb = np.ascontiguousarray(x[:, b * per:(b + 1) * per])
+        qb = np.ascontiguousarray(q[:, b * per:(b + 1) * per])
+        acc, _ = ops.partial_distance_update(
+            *_t(xb, (xb ** 2).sum(1), qb, (qb ** 2).sum(1)), acc, tau)
+    want = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_allclose(acc.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def _mk_topk(m, c, k, seed=0, frac_invalid=0.2, run_filled=True, ties=False):
+    rng = np.random.default_rng(seed)
+    scores = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+    if ties:
+        scores = np.round(scores / 10).astype(np.float32)   # many exact ties
+    scores[rng.random((m, c)) < frac_invalid] = np.inf
+    ids = rng.integers(0, 10_000, size=(m, c)).astype(np.int32)
+    if run_filled:
+        run_s = np.sort(rng.uniform(0, 100, size=(m, k)).astype(np.float32), axis=1)
+        if ties:
+            run_s = np.sort(np.round(run_s / 10).astype(np.float32), axis=1)
+        run_i = rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32)
+    else:
+        run_s = np.full((m, k), np.inf, np.float32)
+        run_i = np.full((m, k), -1, np.int32)
+    return scores, ids, run_s, run_i
+
+
+@pytest.mark.parametrize("m,c,k", [(1, 8, 4), (8, 64, 10), (13, 100, 5),
+                                   (4, 16, 16), (64, 256, 10), (4, 256, 40)])
+@pytest.mark.parametrize("run_filled", [True, False])
+@pytest.mark.parametrize("ties", [False, True])
+def test_topk_plain_matches_reference_and_pallas(m, c, k, run_filled, ties):
+    arrs = _mk_topk(m, c, k, seed=m * c + k, run_filled=run_filled, ties=ties)
+    gs, gi = ops.running_topk_update(*_t(*arrs), k=k)
+    assert gs.dtype == torch.float32 and gi.dtype == torch.int32
+    ws, wi = r_ref.running_topk_ref(*map(jnp.asarray, arrs), k)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    # the stable sort orders ties as lax.top_k does: ids equal exactly
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    ps, pi = pallas_topk(*map(jnp.asarray, arrs), k=k, tile_m=4, interpret=True)
+    pi = np.where(np.isfinite(np.asarray(ps)), np.asarray(pi), -1)
+    assert_topk_close(gs.numpy(), gi.numpy(), ps, pi)
+
+
+def test_topk_all_invalid_chunk_keeps_running():
+    scores = torch.full((3, 10), torch.inf)
+    ids = torch.full((3, 10), -1, dtype=torch.int32)
+    run_s = torch.from_numpy(np.sort(np.random.default_rng(0).uniform(0, 1, (3, 5)),
+                                     axis=1).astype(np.float32))
+    run_i = torch.arange(15, dtype=torch.int32).reshape(3, 5)
+    got_s, got_i = ops.running_topk_update(scores, ids, run_s, run_i, k=5)
+    assert torch.equal(got_s, run_s) and torch.equal(got_i, run_i)
+
+
+def test_topk_broadcast_ids_row():
+    """The ring passes one chunk's ids to every row as an expanded view."""
+    s, ids, rs, ri = _mk_topk(6, 32, 4, seed=9)
+    row = torch.from_numpy(ids[0])
+    a = ops.running_topk_update(*_t(s), row.expand(6, 32), *_t(rs, ri), k=4)
+    b = ops.running_topk_update(*_t(s, np.broadcast_to(ids[0], (6, 32)), rs, ri), k=4)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_masked_topk_matches_reference():
+    rng = np.random.default_rng(3)
+    s = rng.uniform(size=(5, 30)).astype(np.float32)
+    s[rng.random((5, 30)) < 0.8] = np.inf
+    ids = rng.integers(0, 99, size=(5, 30)).astype(np.int32)
+    gs, gi = ref.masked_topk_ref(*_t(s, ids), 7)
+    ws, wi = r_ref.masked_topk_ref(jnp.asarray(s), jnp.asarray(ids), 7)
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def test_ops_on_cpu_use_plain_versions_only():
+    ops.reset_launch_counts()
+    arrs = _mk(8, 16, 32)
+    ops.partial_distance_update(*_t(*arrs))
+    ops.running_topk_update(*_t(*_mk_topk(8, 16, 4)), k=4)
+    counts = ops.launch_counts()
+    assert counts == {"partial_distance_update": 0, "running_topk_update": 0,
+                      "partial_distance_update_ref": 1, "running_topk_ref": 1}
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers launch on CUDA tensors or raise; they never compute on
+    the CPU themselves (and raise before any build is attempted)."""
+    with pytest.raises(ValueError, match="CUDA"):
+        distance.partial_distance_update(*_t(*_mk(4, 8, 16)))
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 3)), k=3)
+    with pytest.raises(ValueError, match="k="):
+        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 65)), k=65)
+
+
+def test_kernel_modules_import_without_building():
+    code = (
+        "import repro_torch.kernels.distance, repro_torch.kernels.topk_update\n"
+        "import repro_torch.kernels.ops, repro_torch.serve\n"
+        "from repro_torch.kernels import _build\n"
+        "assert not _build._libs and not _build.build_log\n"
+        "print('LAZY_OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PATH="",
+               CUDA_HOME="/nonexistent")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "LAZY_OK" in proc.stdout
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for m, n, d in [(4, 256, 32), (64, 256, 64), (128, 256, 128), (130, 257, 96)]:
+        for metric in ("l2", "ip"):
+            arrs = [a.to(dev) for a in _t(*_mk(m, n, d, seed=m + d,
+                                               dead_tile=slice(128, 256)))]
+            got, skip = distance.partial_distance_update(*arrs, metric=metric)
+            want = ref.partial_distance_update_ref(*arrs, metric=metric)
+            assert_distance_close(got.cpu().numpy(), want.cpu().numpy(),
+                                  arrs[5].cpu().numpy())
+            assert torch.equal(skip, ops._tile_skip_map(arrs[4], 128, 128))
+    for m, c, k in [(4, 256, 10), (64, 256, 40), (3, 4096, 64)]:
+        for ties in (False, True):
+            arrs = [a.to(dev) for a in _t(*_mk_topk(m, c, k, seed=c, ties=ties))]
+            gs, gi = topk_update.running_topk_update(*arrs, k=k)
+            ws, wi = ref.running_topk_ref(*arrs, k=k)
+            assert torch.equal(gs, ws) and torch.equal(gi, wi)
