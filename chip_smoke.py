@@ -9,17 +9,25 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    CUDA versions; build the CUDA kernels from ``src/repro_torch/kernels/
    csrc`` with ``nvcc`` and print the build time and ``ptxas`` report.
 2. Kernels: hold each kernel against its plain PyTorch version on the
-   card at every shape the serving phase gives it (M = QG in
-   {4, 8, 16, 32, 64, 128}; tolerances of the CPU tests, identical skip
-   maps), then time kernel, plain version, a PyTorch library yardstick
-   and the bytes/flops bound at the main path's shapes (CUDA events).
-3. Serving: build a SIFT1M-shaped IVF index on the card (1M × 128 fp32
-   rows, nlist 1024, nprobe 16, top-10) and serve batches of
+   card at every shape the serving phases give it (M = QG in
+   {4, 8, 16, 32, 64, 128}; fp32 distance at the CPU tests' tolerances,
+   the int8 distance and the top-K bit for bit, identical skip maps),
+   then time kernel, plain version, a PyTorch library yardstick and the
+   bytes/operations bound at the main path's shapes (CUDA events).
+3. Serving, fp32: build a SIFT1M-shaped IVF index on the card (1M × 128
+   fp32 rows, nlist 1024, nprobe 16, top-10) and serve batches of
    1, 8, 32, 128 and 160 queries through ``SpmdExecutor.search_batch`` on
    the virtual meshes 1×1 and 2×2; every batch must equal the exact
    ``search_oracle`` on the card, and the kernels' launch counters must
    grow on that path while the plain versions stay at 0.
-4. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+4. Serving, int8 (``ExecutorConfig(precision="int8")``): the same batches
+   on the same index and meshes through the quantized stage 1 and the
+   fp32 re-rank. Every score must be the fp32 distance of its id, every
+   row must equal ``two_stage_search`` on the card but for ties (see
+   ``check_int8``), recall@10 against the fp32 oracle must be ≥ 0.98, and
+   the int8 and top-K kernels must launch while the fp32 distance kernel
+   and every plain version stay at 0.
+5. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -34,6 +42,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+INT8_OP_PER_S = 1979e12       # H100 SXM, dense int8 tensor-core rate
 TOL = 1e-4                    # the CPU tests' fp32 rule
 
 
@@ -41,8 +50,9 @@ def log(**kw):
     print(json.dumps(kw, default=float), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = flops / FP32_FLOP_PER_S + int8_ops / INT8_OP_PER_S
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -62,9 +72,9 @@ def main() -> int:
 
     from repro_torch._device import resolve_device
     from repro_torch.config import HarmonyConfig
-    from repro_torch.core import build_ivf, search_oracle
+    from repro_torch.core import assign_queries, build_ivf, search_oracle, two_stage_search
     from repro_torch.data import brute_force_topk, make_dataset, make_queries, recall_at_k
-    from repro_torch.kernels import _build, distance, ops, ref, topk_update
+    from repro_torch.kernels import _build, distance, distance_int8, ops, ref, topk_update
     from repro_torch.serve import ExecutorConfig, SpmdExecutor
 
     smi = subprocess.run(
@@ -123,7 +133,27 @@ def main() -> int:
         np.testing.assert_allclose(got[both], want[both], rtol=TOL, atol=TOL)
         return float(np.abs(got[both] - want[both]).max()) if both.any() else 0.0
 
-    errs = {"partial_distance_update": 0.0, "running_topk_update": 0.0}
+    def mk_int8(m, n, d, extreme=False, tight=False):
+        x = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
+        q = rng.integers(-127, 128, size=(m, d)).astype(np.int8)
+        if extreme:                            # codes at the clip, ±127
+            x[::4] = 127
+            q[1::3] = -127
+        s2 = np.float32(0.0123)
+        xn2 = (s2 * (x.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+        qn2 = (s2 * (q.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+        acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+        acc[rng.random((m, n)) < 0.3] = np.inf
+        acc[:, 128:256] = np.inf               # one whole 128-wide tile dead
+        tau = (rng.uniform(0.8, 1.1, size=(m,)) * 2 * 5376 * d * float(s2)).astype(np.float32)
+        if extreme:                            # keep the far pairs finite
+            tau[:] = np.inf
+        if tight:
+            tau[0] = 0.5                       # prunes the whole row
+        return [t(x), t(xn2), t(q), t(qn2), torch.tensor(s2, device=dev), t(acc), t(tau)]
+
+    errs = {"partial_distance_update": 0.0, "int8_partial_distance_update": 0.0,
+            "running_topk_update": 0.0}
     n_checked = 0
     # M = QG = qb / B: qb in {8, 32, 128} on 1x1 and 2x2 gives every M here
     ring_ms = (4, 8, 16, 32, 64, 128)
@@ -141,6 +171,23 @@ def main() -> int:
                     assert torch.equal(skip, ops._tile_skip_map(a[4], *tiles)), \
                         "partial_distance: skip map differs"
                     n_checked += 1
+    # int8: M = QG as above, Db = 128/B; the ring folds the dot per tile_k
+    int8_cases = [(m, 256, d, tiles, 128, False, False) for m in ring_ms
+                  for d in (32, 64, 128) for tiles in ((128, 128), (32, 64))]
+    int8_cases.append((130, 257, 96, (128, 128), 32, True, True))   # ragged, 3 chunks
+    for m, n, d, tiles, tk, extreme, tight in int8_cases:
+        a = mk_int8(m, n, d, extreme, tight)
+        got, skip = distance_int8.int8_partial_distance_update(
+            *a, tile_m=tiles[0], tile_n=tiles[1], tile_k=tk)
+        want = ref.int8_partial_distance_update_ref(*a, tile_k=tk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"int8 distance differs at {(m, n, d, tiles, tk)}"
+        assert torch.isfinite(want).any(), "int8: no finite value to compare"
+        assert torch.equal(skip, ops._tile_skip_map(a[5], *tiles)), "int8 skip map differs"
+        assert not torch.isfinite(got[:, 128:256]).any(), "int8: a dead tile came back"
+        if tight:
+            assert not torch.isfinite(got[0]).any(), "int8: tight tau kept a value"
+        n_checked += 1
     for m in ring_ms:
         for k in (10, 40):
             for ties in (False, True):
@@ -204,8 +251,29 @@ def main() -> int:
                    library_call_ms=lib_call, card=smi)
         log(**row)
         timed.setdefault("partial_distance_update", row)
-    for (m, label) in ((128, "mesh1x1_qb128"), (64, "mesh2x2_qb128")):
-        k, c = 10, 256
+    for (m, d, label) in ((128, 128, "mesh1x1_qb128"), (64, 64, "mesh2x2_qb128")):
+        a = mk_int8(m, 256, d)
+        alive_tiles = int((ops._tile_skip_map(a[5], 128, 128) == 0).sum())
+        base = a[5] + a[3][:, None] + a[1][None, :]
+        two_s2 = 2.0 * a[4]
+        xt = a[0].T                      # column-major, as _int_mm takes it
+        (ms, call), (plain, plain_call), (lib, lib_call) = (
+            time_ms(lambda: distance_int8.int8_partial_distance_update(*a)),
+            time_ms(lambda: ref.int8_partial_distance_update_ref(*a)),
+            time_ms(lambda: base - two_s2 * torch._int_mm(a[2], xt).float()))
+        nbytes = 256 * d + m * d + 4 * (256 + 2 * m + 2 * m * 256) + 4
+        int8_ops = 2 * min(m, 128) * 128 * d * alive_tiles
+        b, by = bound_ms(nbytes, 4 * m * 256, int8_ops)
+        row = dict(kernel="int8_partial_distance_update", shape=label, M=m, N=256,
+                   Db=d, kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                   bound_by=by, library_call="torch._int_mm(q, x.T) + f32 combine",
+                   kernel_call_ms=call, plain_call_ms=plain_call,
+                   library_call_ms=lib_call, card=smi)
+        log(**row)
+        timed.setdefault("int8_partial_distance_update", row)
+    for (m, k, label) in ((128, 10, "mesh1x1_qb128"), (64, 10, "mesh2x2_qb128"),
+                          (128, 40, "mesh1x1_qb128_int8"), (64, 40, "mesh2x2_qb128_int8")):
+        c = 256
         a = mk_topk(m, c, k, False)
         ids_row = a[1][0].expand(m, c)
         cat = torch.cat([a[2], a[0]], dim=1)
@@ -253,7 +321,28 @@ def main() -> int:
             assert np.allclose(np.sort(res.scores[r]), np.sort(want_s[r]),
                                rtol=1e-3, atol=1e-3), (res.ids[r], want_i[r])
 
-    served = {"partial_distance_update": 0, "running_topk_update": 0}
+    def profile_128(ex, mesh, walls, precision):
+        """Where the time of one 128-query batch goes: device busy share."""
+        lo128 = sum(sizes[:3])
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            res = ex.search_batch(q_all[lo128:lo128 + 128])
+        busy_us = {}      # device kernels only (an aten op repeats its kernels' time)
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                busy_us[ev.key[:60]] = ev.self_device_time_total
+        wall_us = walls[128]             # the same batch, unprofiled
+        top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]
+        log(phase="profile", mesh=f"{mesh[0]}x{mesh[1]}", precision=precision,
+            nq=128, wall_ms=wall_us / 1e3, profiled_wall_ms=res.stats["wall_s"] * 1e3,
+            device_busy_ms=sum(busy_us.values()) / 1e3,
+            device_idle_share=(1 - sum(busy_us.values()) / wall_us
+                               if busy_us else "not measured"),
+            top_device_us=dict(top))
+
+    served = {"partial_distance_update": 0, "int8_partial_distance_update": 0,
+              "running_topk_update": 0}
     for mesh in ((1, 1), (2, 2)):
         mb_before = torch.cuda.memory_allocated() / 2 ** 20
         ex = SpmdExecutor(index, ExecutorConfig(d_blocks=mesh[1]), mesh=mesh)
@@ -281,35 +370,125 @@ def main() -> int:
             summary=ex.stats_summary())
         assert counts["partial_distance_update"] > 0, "distance kernel never launched"
         assert counts["running_topk_update"] > 0, "top-K kernel never launched"
+        assert counts["int8_partial_distance_update"] == 0, "int8 kernel ran on fp32"
         assert counts["partial_distance_update_ref"] == 0, "plain distance ran"
         assert counts["running_topk_ref"] == 0, "plain top-K ran"
         for k in served:
             served[k] += counts[k]
-        # where the time of one 128-query batch goes: device busy share
-        lo128 = sum(sizes[:3])
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            res = ex.search_batch(q_all[lo128:lo128 + 128])
-        busy_us = {}      # device kernels only (an aten op repeats its kernels' time)
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                busy_us[ev.key[:60]] = ev.self_device_time_total
-        wall_us = walls[128]             # the same batch, unprofiled
-        top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]
-        log(phase="profile", mesh=f"{mesh[0]}x{mesh[1]}", nq=128,
-            wall_ms=wall_us / 1e3, profiled_wall_ms=res.stats["wall_s"] * 1e3,
-            device_busy_ms=sum(busy_us.values()) / 1e3,
-            device_idle_share=(1 - sum(busy_us.values()) / wall_us
-                               if busy_us else "not measured"),
-            top_device_us=dict(top))
+        profile_128(ex, mesh, walls, "fp32")
         del ex
         torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- 4. report
+    # ---------------------------------------------------------- 4. serving, int8
+    order = np.argsort(index.ids, kind="stable")
+    sorted_ids = index.ids[order]
+
+    def packed_rows(ids):
+        return order[np.searchsorted(sorted_ids, ids)]
+
+    def check_int8(ids, scores, ts, quant, kp):
+        """Each row: (1) every score is the fp32 distance of its id (float64
+        on the card) and ids are distinct; (2) the row equals
+        ``two_stage_search``'s, or its sorted scores agree (an fp32 tie), or
+        every id in the symmetric difference is a stage-1 boundary tie (its
+        quantized score within 1e-4·(1+|t|) of the row's K'-th quantized
+        score t over its probed rows) or no better than the other side's
+        k-th fp32 score (displaced by such a tie). Returns how many rows
+        each rule settled."""
+        ok = ids >= 0
+        assert ok.all(), "int8: a row came back short of k"
+        rows = torch.as_tensor(packed_rows(ids)).to(dev)
+        x64 = index.x[rows].double()
+        q64 = torch.as_tensor(q_all).to(dev).double()[:, None, :]
+        exact = ((x64 - q64) ** 2).sum(2).cpu().numpy()
+        np.testing.assert_allclose(scores, exact, rtol=1e-3, atol=1e-3)
+        assert all(len(set(r.tolist())) == len(r) for r in ids), "int8: repeated id"
+        settled = {"equal": 0, "fp32_tie": 0, "stage1_tie": 0}
+        for r in range(len(ids)):
+            if np.array_equal(ids[r], ts.ids[r]):
+                settled["equal"] += 1
+                continue
+            if np.allclose(np.sort(scores[r]), np.sort(ts.scores[r]), rtol=1e-3, atol=1e-3):
+                settled["fp32_tie"] += 1
+                continue
+            probed = np.concatenate([np.arange(*index.cluster_rows(int(c)))
+                                     for c in assign_queries(index, q_all[r:r + 1])[0]])
+            qc = quant.encode(q_all[r:r + 1])
+            t8 = np.sort(quant.scores(qc, rows=probed)[0])[kp - 1]
+            mine, theirs = set(ids[r].tolist()), set(ts.ids[r].tolist())
+            for e in mine ^ theirs:
+                s8 = quant.scores(qc, rows=packed_rows(np.array([e])))[0, 0]
+                if abs(s8 - t8) <= 1e-4 * (1 + abs(t8)):
+                    continue
+                own, other = ((scores[r], ts.scores[r]) if e in mine
+                              else (ts.scores[r], scores[r]))
+                row_ids = ids[r] if e in mine else ts.ids[r]
+                d_e = own[list(row_ids).index(e)]
+                assert d_e >= other[-1] - 1e-3 * (1 + abs(other[-1])), (
+                    f"int8 row {r}: id {e} differs from two_stage_search "
+                    f"beyond a tie ({ids[r]} vs {ts.ids[r]})")
+            settled["stage1_tie"] += 1
+        return settled
+
+    for mesh in ((1, 1), (2, 2)):
+        B = mesh[1]
+        mb_before = torch.cuda.memory_allocated() / 2 ** 20
+        t_ex = time.perf_counter()
+        ex = SpmdExecutor(index, ExecutorConfig(d_blocks=B, precision="int8"), mesh=mesh)
+        executor_mb = torch.cuda.memory_allocated() / 2 ** 20 - mb_before
+        setup_s = time.perf_counter() - t_ex
+        ops.reset_launch_counts()
+        t_mesh = time.perf_counter()
+        lo, walls, parts = 0, {}, []
+        for n in sizes:
+            before = ops.launch_counts()
+            res = ex.search_batch(q_all[lo:lo + n])
+            after = ops.launch_counts()
+            walls[n] = res.stats["wall_s"] * 1e6
+            assert res.stats["precision"] == "int8" and res.stats["rerank_k"] == 40
+            parts.append(res)
+            log(phase="serve_int8", mesh=f"{mesh[0]}x{mesh[1]}", nq=n,
+                wall_ms=res.stats["wall_s"] * 1e3, buckets=res.stats["buckets"],
+                splits=res.stats["splits"], rerank_k=res.stats["rerank_k"],
+                tile_skip_frac=res.stats["tile_skipped"] / max(res.stats["tile_total"], 1),
+                recall_at_10=recall_at_k(res.ids, true_idx[lo:lo + n]),
+                launches={k: after[k] - before[k] for k in after})
+            lo += n
+        counts = ops.launch_counts()
+        serve_s = time.perf_counter() - t_mesh
+        assert counts["int8_partial_distance_update"] > 0, "int8 kernel never launched"
+        assert counts["running_topk_update"] > 0, "top-K kernel never launched"
+        assert counts["partial_distance_update"] == 0, "fp32 distance ran on int8"
+        assert counts["int8_partial_distance_update_ref"] == 0, "plain int8 distance ran"
+        assert counts["partial_distance_update_ref"] == 0, "plain distance ran"
+        assert counts["running_topk_ref"] == 0, "plain top-K ran"
+        for k in served:
+            served[k] += counts[k]
+        ids = np.concatenate([p.ids for p in parts])
+        scores = np.concatenate([p.scores for p in parts])
+        t0 = time.perf_counter()
+        ts = two_stage_search(index, q_all, quant_blocks=B)
+        settled = check_int8(ids, scores, ts, index.int8_quant(B), ts.stats["rerank_k"])
+        recall_fp32 = recall_at_k(ids, oracle.ids)
+        assert recall_fp32 >= 0.98, f"int8 recall@10 vs fp32 {recall_fp32}"
+        log(phase="serve_path_int8", mesh=f"{mesh[0]}x{mesh[1]}", setup_s=setup_s,
+            seconds=serve_s, check_s=time.perf_counter() - t0, counts=counts,
+            executor_resident_mb=executor_mb,
+            index_rows_mb=index.x.numel() * 4 / 2 ** 20,
+            recall_at_10_vs_fp32_oracle=recall_fp32,
+            recall_at_10_vs_truth=recall_at_k(ids, true_idx),
+            rows_vs_two_stage=settled, summary=ex.stats_summary())
+        profile_128(ex, mesh, walls, "int8")
+        del ex
+        torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 5. report
     sources = {
         "partial_distance_update": ("src/repro_torch/kernels/csrc/partial_distance.cu",
                                     "src/repro/kernels/distance.py:127"),
+        "int8_partial_distance_update": (
+            "src/repro_torch/kernels/csrc/partial_distance_int8.cu",
+            "src/repro/kernels/distance_int8.py:139"),
         "running_topk_update": ("src/repro_torch/kernels/csrc/topk_update.cu",
                                 "src/repro/kernels/topk_update.py:93"),
     }

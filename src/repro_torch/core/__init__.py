@@ -1,7 +1,9 @@
-"""HARMONY core, slice 1: index build and layout, probe selection, τ
-prewarm, the exact oracle and the ring pipeline on a virtual mesh."""
+"""HARMONY core: index build and layout, the int8 tier's codes, probe
+selection, τ prewarm, the exact oracle, the two-stage int8 search and the
+ring pipeline on a virtual mesh."""
 
 from repro_torch.core.index import (
+    Int8Quant,
     IVFIndex,
     ShardedCorpus,
     assign_queries,
@@ -9,13 +11,15 @@ from repro_torch.core.index import (
     dim_block_bounds,
     ivf_from_arrays,
     preassign,
+    quantize_vectors,
 )
 from repro_torch.core.pruning import exact_scores, prewarm_tau
-from repro_torch.core.search import search_oracle
+from repro_torch.core.search import search_oracle, two_stage_search
 from repro_torch.core.types import PartitionPlan, SearchResult
 
 __all__ = [
     "IVFIndex", "ShardedCorpus", "build_ivf", "ivf_from_arrays", "preassign",
     "assign_queries", "dim_block_bounds", "PartitionPlan", "SearchResult",
-    "exact_scores", "prewarm_tau", "search_oracle",
+    "Int8Quant", "quantize_vectors",
+    "exact_scores", "prewarm_tau", "search_oracle", "two_stage_search",
 ]

@@ -6,7 +6,9 @@ cluster of each packed row, cluster offsets, cluster slices and the
 packed-row permutation. The V × B layout that ``preassign`` makes is
 host-side too, as in the reference: the executor packs it and uploads
 one copy. Probe selection (``assign_queries``) is the reference's
-host-side numpy computation.
+host-side numpy computation. The int8 tier's codes and grids
+(``Int8Quant``, ``quantize_vectors``) are host numpy too, made from one
+host copy of the rows.
 """
 
 from __future__ import annotations
@@ -68,6 +70,24 @@ class IVFIndex:
             cached = (self.x * self.x).sum(1)
             self.__dict__["_xnorm2"] = cached
         return cached
+
+    def int8_quant(self, d_blocks: Optional[int] = None) -> "Int8Quant":
+        """Scalar-quantized int8 tier of the corpus, one grid per
+        dimension block, computed on the host from one copy of the rows
+        and cached per ``d_blocks`` (default ``cfg.quant_blocks``)."""
+        d_blocks = d_blocks or self.cfg.quant_blocks
+        cache = self.__dict__.setdefault("_int8_quants", {})
+        q = cache.get(d_blocks)
+        if q is None:
+            q = quantize_vectors(self.x.cpu().numpy(), d_blocks)
+            cache[d_blocks] = q
+        return q
+
+    def attach_int8_quant(self, quant: "Int8Quant") -> None:
+        """Install codes made elsewhere (e.g. persisted) for their
+        ``d_blocks``."""
+        cache = self.__dict__.setdefault("_int8_quants", {})
+        cache[quant.d_blocks] = quant
 
 
 def _pack(cfg: HarmonyConfig, centers: np.ndarray, xt: torch.Tensor,
@@ -158,6 +178,152 @@ def dim_block_bounds(dim: int, d_blocks: int) -> List[Tuple[int, int]]:
     """Contiguous dimension blocks; block b covers [lo, hi)."""
     per = -(-dim // d_blocks)  # ceil
     return [(b * per, min(dim, (b + 1) * per)) for b in range(d_blocks)]
+
+
+# ---------------------------------------------------------------------------
+# Scalar-quantized int8 tier (stage 1 of the two-stage search path)
+# ---------------------------------------------------------------------------
+
+
+def fit_int8_grid(blk: np.ndarray) -> Tuple[float, float]:
+    """(zero, scale) of the affine int8 grid that covers ``blk``'s
+    [min, max] exactly; the scale has a floor so a constant block stays
+    well-defined."""
+    mn = float(blk.min()) if blk.size else 0.0
+    mx = float(blk.max()) if blk.size else 0.0
+    return 0.5 * (mn + mx), max((mx - mn) / 254.0, 1e-8)
+
+
+def encode_int8(x: np.ndarray, zero, scale) -> np.ndarray:
+    """``round((x − zero) / scale)`` clipped to [−127, 127], as int8 (the
+    f32 arithmetic of the reference, so codes are byte-identical)."""
+    return np.clip(np.rint((x - zero) / scale), -127, 127).astype(np.int8)
+
+
+@dataclass(frozen=True)
+class Int8Quant:
+    """Per-dimension-block affine int8 codes of one packed corpus.
+
+    Block b has one (scale, zero-point) pair fit to the block's value
+    range; a vector dimension j in block b encodes as
+    ``round((x_j − zero_b) / scale_b)`` clipped to [−127, 127]. Queries
+    are encoded on the *same* grid, so the zero-points cancel in the
+    quantized L2 difference and stage-1 scoring is a pure int8×int8
+    contraction (see ``kernels/csrc/partial_distance_int8.cu``).
+
+    The codes and the grid are host numpy, byte-identical to the
+    reference's; :meth:`device_scores` keeps one device copy of the codes
+    for the scans that run on the card.
+    """
+
+    codes: np.ndarray   # [NB, D] int8, packed row order of the owning index
+    scale: np.ndarray   # [B] float32
+    zero: np.ndarray    # [B] float32
+
+    @property
+    def d_blocks(self) -> int:
+        return int(self.scale.shape[0])
+
+    @property
+    def bounds(self) -> List[Tuple[int, int]]:
+        return dim_block_bounds(int(self.codes.shape[1]), self.d_blocks)
+
+    def encode(self, x: np.ndarray) -> np.ndarray:
+        """Encode fp32 vectors [..., D] on this grid → int8 codes.
+        Out-of-range values (queries may fall outside the corpus's value
+        range) clip; the corpus itself never clips."""
+        x = np.asarray(x, np.float32)
+        out = np.empty(x.shape, np.int8)
+        for b, (lo, hi) in enumerate(self.bounds):
+            out[..., lo:hi] = encode_int8(x[..., lo:hi], self.zero[b], self.scale[b])
+        return out
+
+    def decode(self, codes: Optional[np.ndarray] = None) -> np.ndarray:
+        """Dequantize codes [..., D] back to fp32 (default: own corpus)."""
+        codes = self.codes if codes is None else codes
+        out = np.empty(codes.shape, np.float32)
+        for b, (lo, hi) in enumerate(self.bounds):
+            out[..., lo:hi] = (
+                codes[..., lo:hi].astype(np.float32) * self.scale[b]
+                + self.zero[b]
+            )
+        return out
+
+    def code_norms2(self, codes: Optional[np.ndarray] = None) -> np.ndarray:
+        """Σ_b s_b²·Σ_j code², the pre-scaled norm term of the quantized
+        L2 form (cached for the corpus codes)."""
+        if codes is None:
+            cached = self.__dict__.get("_cnorm2")
+            if cached is not None:
+                return cached
+            codes = self.codes
+            caching = True
+        else:
+            caching = False
+        out = np.zeros(codes.shape[:-1], np.float32)
+        for b, (lo, hi) in enumerate(self.bounds):
+            blk = codes[..., lo:hi].astype(np.int32)
+            out += (self.scale[b] ** 2) * np.sum(blk * blk, axis=-1).astype(
+                np.float32
+            )
+        if caching:
+            object.__setattr__(self, "_cnorm2", out)
+        return out
+
+    def scores(self, q_codes: np.ndarray, rows: Optional[np.ndarray] = None
+               ) -> np.ndarray:
+        """Quantized-L2 distances d̂²[m, n] between encoded queries [M, D]
+        and corpus rows (all, or the given packed rows), on the host:
+        int32 dot accumulation, f32 combine."""
+        p = self.codes if rows is None else self.codes[rows]
+        pn2 = self.code_norms2() if rows is None else self.code_norms2(p)
+        qn2 = self.code_norms2(q_codes)
+        acc = qn2[:, None] + pn2[None, :]
+        for b, (lo, hi) in enumerate(self.bounds):
+            dot = q_codes[:, lo:hi].astype(np.int32) @ p[:, lo:hi].astype(
+                np.int32
+            ).T
+            acc -= (2.0 * self.scale[b] ** 2) * dot.astype(np.float32)
+        return acc.astype(np.float32)
+
+    def device_scores(self, q_codes: np.ndarray, device: DeviceLike
+                      ) -> torch.Tensor:
+        """:meth:`scores` over every corpus row, in torch on ``device``,
+        bit-identical to the host version: the same f32 operations in the
+        same order, and each block's dot taken in float64, where every
+        partial sum of int8 products is exact (PyTorch has no int32
+        matrix product on CUDA)."""
+        dev = torch.device(device)
+        cached = self.__dict__.get("_device_copy")
+        if cached is None or cached[0] != dev:
+            cached = (dev, torch.as_tensor(self.codes).to(dev),
+                      torch.as_tensor(self.code_norms2()).to(dev))
+            object.__setattr__(self, "_device_copy", cached)
+        _, codes, pn2 = cached
+        qc = torch.as_tensor(np.asarray(q_codes, np.int8)).to(dev)
+        acc = torch.as_tensor(self.code_norms2(q_codes)).to(dev)[:, None] + pn2[None, :]
+        for b, (lo, hi) in enumerate(self.bounds):
+            dot = (qc[:, lo:hi].double() @ codes[:, lo:hi].double().T).float()
+            acc -= torch.tensor(2.0 * self.scale[b] ** 2, device=dev) * dot
+        return acc
+
+    def memory_bytes(self) -> int:
+        return self.codes.nbytes + self.scale.nbytes + self.zero.nbytes
+
+
+def quantize_vectors(x: np.ndarray, d_blocks: int) -> Int8Quant:
+    """Fit one affine int8 grid per dimension block to ``x`` [NB, D] (host
+    numpy, :func:`fit_int8_grid`) and encode it; the corpus itself never
+    clips."""
+    x = np.asarray(x, np.float32)
+    bounds = dim_block_bounds(int(x.shape[1]), d_blocks)
+    scale = np.ones(d_blocks, np.float32)
+    zero = np.zeros(d_blocks, np.float32)
+    codes = np.empty(x.shape, np.int8)
+    for b, (lo, hi) in enumerate(bounds):
+        zero[b], scale[b] = fit_int8_grid(x[:, lo:hi])
+        codes[:, lo:hi] = encode_int8(x[:, lo:hi], zero[b], scale[b])
+    return Int8Quant(codes=codes, scale=scale, zero=zero)
 
 
 @dataclass

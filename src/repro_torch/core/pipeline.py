@@ -14,7 +14,9 @@ explicit loops on one GPU, with the same semantics:
   within a chunk and tightens between chunks to
   ``min(tau0, kth best so far)``;
 * each (chunk, stage) is one :func:`kernels.ops.partial_distance_update`
-  and each chunk ends with one :func:`kernels.ops.running_topk_update`;
+  (``precision="int8"``: :func:`kernels.ops.int8_partial_distance_update`
+  on the codes, with the block's s²) and each chunk ends with one
+  :func:`kernels.ops.running_topk_update`;
 * the cross-shard merge is a stable sort, which orders ties by index as
   ``lax.top_k`` does, so the result does not depend on the geometry.
 
@@ -30,7 +32,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import ShardedCorpus, dim_block_bounds
+from repro_torch.core.index import (
+    Int8Quant,
+    ShardedCorpus,
+    dim_block_bounds,
+    encode_int8,
+    fit_int8_grid,
+)
 from repro_torch.kernels import ops as kops
 
 
@@ -38,8 +46,9 @@ from repro_torch.kernels import ops as kops
 class SpmdConfig:
     """Static geometry of the ring search step.
 
-    Only ``n_pods=1``, ``x_dtype="float32"`` and ``precision="fp32"`` are
-    carried by this slice; other values raise ``NotImplementedError``.
+    Only ``n_pods=1`` and ``x_dtype="float32"`` are carried by the port;
+    other values raise ``NotImplementedError``. ``precision`` is
+    ``"fp32"`` or ``"int8"`` (the quantized stage 1, L2 only).
     ``use_pallas`` is kept for signature parity: the route is chosen by
     the tensors' device (kernel on CUDA, plain version on the CPU), and
     ``False`` is not supported.
@@ -79,8 +88,12 @@ class SpmdConfig:
         return self.cap // self.chunk
 
     def __post_init__(self):
-        if self.precision != "fp32":
+        if self.precision not in ("fp32", "int8"):
             raise NotImplementedError(f"precision={self.precision!r}")
+        if self.precision == "int8" and self.metric != "l2":
+            # the shared-grid quantized difference form is L2-only
+            raise ValueError("precision='int8' needs metric='l2', "
+                             f"got {self.metric!r}")
         if self.x_dtype != "float32":
             raise NotImplementedError(f"x_dtype={self.x_dtype!r}")
         if self.n_pods != 1:
@@ -97,14 +110,25 @@ class SpmdConfig:
 # ---------------------------------------------------------------------------
 
 
-def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig):
+def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig,
+                        quant: Optional[Int8Quant] = None):
     """Pack the sharded corpus into the step's resident arrays, in the
     reference's layout, on the corpus's device:
 
-      x_blocks   [V, cap, D_pad]  f32
+      x_blocks   [V, cap, D_pad]  f32 | int8 codes
       xn2_blocks [B, V, cap]      f32
       cluster_ids[V, cap]         i32
       row_ids    [V, cap]         i32
+      scale2     [B]              f32   (int8 only: s² per dim block)
+
+    With ``precision="int8"`` the codes are made on the host with the
+    reference's numpy arithmetic, so they are byte-identical to it:
+    ``xn2_blocks`` carries the pre-scaled s²·Σcode² norms, the grid comes
+    from ``quant`` when its blocking matches this mesh, else is fit to
+    this layout (:func:`_mesh_quant_grid`), and the dict also holds the
+    host-only ``quant_grid`` = (scale [B], zero [B]) that queries are
+    encoded on. Padded rows and dims encode literal 0.0 on the same grid
+    as query padding, so padding contributes exactly 0.
     """
     V, B = scfg.v_shards, scfg.d_blocks
     cap, D = scfg.cap, scfg.dim
@@ -121,6 +145,27 @@ def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig):
     row_ids = torch.full((V, cap), -1, dtype=torch.int32, device=dev)
     row_ids[:, :n] = torch.as_tensor(corpus.ids_shard.astype(np.int32), device=dev)
 
+    if scfg.precision == "int8":
+        xs_np = xs.cpu().numpy()
+        xf = np.zeros((V, cap, D), np.float32)
+        xf[:, :n, : xs_np.shape[2]] = xs_np
+        scale, zero = _mesh_quant_grid(xs_np, corpus.valid, scfg, quant)
+        codes = np.empty((V, cap, D), np.int8)
+        xn2_np = np.zeros((B, V, cap), np.float32)
+        for b, (lo, hi) in enumerate(dim_block_bounds(D, B)):
+            cb = encode_int8(xf[:, :, lo:hi], zero[b], scale[b])
+            codes[:, :, lo:hi] = cb
+            c32 = cb.astype(np.int32)
+            xn2_np[b] = (scale[b] ** 2) * np.sum(c32 * c32, axis=2)
+        return dict(
+            x_blocks=torch.as_tensor(codes, device=dev),
+            xn2_blocks=torch.as_tensor(xn2_np, device=dev),
+            cluster_ids=cluster_ids,
+            row_ids=row_ids,
+            scale2=torch.as_tensor(scale.astype(np.float32) ** 2, device=dev),
+            quant_grid=(scale, zero),   # host-only: the queries' grid
+        )
+
     x_blocks = torch.zeros((V, cap, D), dtype=torch.float32, device=dev)
     x_blocks[:, :n, : xs.shape[2]] = xs
     xn2_blocks = torch.zeros((B, V, cap), dtype=torch.float32, device=dev)
@@ -135,33 +180,72 @@ def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig):
                 cluster_ids=cluster_ids, row_ids=row_ids)
 
 
+def _mesh_quant_grid(xs: np.ndarray, valid: np.ndarray, scfg: SpmdConfig,
+                     quant: Optional[Int8Quant]):
+    """(scale [B], zero [B]) for this mesh's dimension blocking.
+
+    Reuses the given grid when its per-block dim ranges coincide with the
+    mesh blocking (``quant.d_blocks == B`` and minimal dim padding);
+    otherwise fits a fresh grid to the shard layout's valid rows, a
+    deterministic function of the corpus."""
+    B, db = scfg.d_blocks, scfg.db
+    if (quant is not None and quant.d_blocks == B
+            and -(-quant.codes.shape[1] // B) == db):
+        return quant.scale.copy(), quant.zero.copy()
+    scale = np.ones(B, np.float32)
+    zero = np.zeros(B, np.float32)
+    rows = xs[valid[:, : xs.shape[1]]] if valid.size else xs.reshape(-1, xs.shape[2])
+    for b, (lo, hi) in enumerate(dim_block_bounds(scfg.dim, B)):
+        zero[b], scale[b] = fit_int8_grid(rows[:, lo:min(hi, rows.shape[1])])
+    return scale, zero
+
+
 def resident_arrays(arrays: dict, scfg: SpmdConfig) -> dict:
     """Re-lay :func:`build_corpus_arrays`'s dict block-major for the
     virtual mesh: x_blk [V, B, cap, Db] and xn2_blk [V, B, cap], so that
-    every (shard, block, chunk) slice the kernels read is contiguous."""
+    every (shard, block, chunk) slice the kernels read is contiguous.
+    ``scale2`` [B] (int8) is carried as is; the host-only ``quant_grid``
+    is left out."""
     V, B, db = scfg.v_shards, scfg.d_blocks, scfg.db
     x = arrays["x_blocks"]
     cap = x.shape[1]
-    return dict(
+    out = dict(
         x_blk=x.reshape(V, cap, B, db).permute(0, 2, 1, 3).contiguous(),
         xn2_blk=arrays["xn2_blocks"].permute(1, 0, 2).contiguous(),
         cluster_ids=arrays["cluster_ids"].contiguous(),
         row_ids=arrays["row_ids"].contiguous(),
     )
+    if "scale2" in arrays:
+        out["scale2"] = arrays["scale2"].contiguous()
+    return out
 
 
 def build_query_arrays(
     q: np.ndarray, scfg: SpmdConfig, probes: np.ndarray, tau0: np.ndarray,
+    quant_grid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
 ):
     """Pack one query batch (host numpy), padded to ``scfg.qb``:
 
-      queries [QB, D_pad] f32, probes [QB, P] i32 (-2 = match nothing),
-      tau0 [QB] f32 (-inf on pad rows, so they prune everything).
+      queries [QB, D_pad] f32 | int8 codes, probes [QB, P] i32 (-2 =
+      match nothing), tau0 [QB] f32 (-inf on pad rows, so they prune
+      everything).
+
+    With ``precision="int8"`` the queries are encoded on the corpus's
+    grid (``quant_grid`` = (scale [B], zero [B])); padded rows and dims
+    encode literal 0.0 like the corpus padding.
     """
     qb, D = scfg.qb, scfg.dim
     queries = np.zeros((qb, D), np.float32)
     nq = min(q.shape[0], qb)
     queries[:nq, : q.shape[1]] = q[:nq]
+    if scfg.precision == "int8":
+        if quant_grid is None:
+            raise ValueError("int8 queries need the corpus grid (quant_grid)")
+        scale, zero = quant_grid
+        codes = np.empty((qb, D), np.int8)
+        for b, (lo, hi) in enumerate(dim_block_bounds(D, scfg.d_blocks)):
+            codes[:, lo:hi] = encode_int8(queries[:, lo:hi], zero[b], scale[b])
+        queries = codes
     probes_pad = np.zeros((qb, probes.shape[1]), np.int32)
     probes_pad[:nq] = probes[:nq]
     probes_pad[nq:] = -2
@@ -198,20 +282,32 @@ def gather_local_candidates(rows, x_blk, xn2_blk, cluster_ids, row_ids):
 
 
 def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
-                      q_blk, probes, tau0):
+                      q_blk, probes, tau0, scale2=None):
     """The ring search over the whole virtual mesh.
 
     x_blk [V, B, cap, Db], xn2_blk [V, B, cap], cluster_ids/row_ids
     [V, cap] (cap = ``scfg.cap``), q_blk [qb, D_pad] f32, probes [qb, P]
     i32, tau0 [qb] f32, all on one device. Returns (scores [qb, K],
     ids [qb, K] i32, stats [2] int64 = (tiles skipped, tiles scored)).
+
+    ``precision="int8"``: x_blk/q_blk carry int8 codes, xn2_blk the
+    pre-scaled s²·Σcode² norms and ``scale2`` [B] each block's s². The
+    ring then computes the *quantized* L2, still monotone over dimension
+    blocks, so the travelling-τ pruning and the running top-K stay exact
+    within the quantized metric (the fp32 re-rank is the executor's).
     """
     V, B, QG, K = scfg.v_shards, scfg.d_blocks, scfg.qg, scfg.k
     chunk, n_chunks, db = scfg.chunk, scfg.n_chunks, scfg.db
+    int8 = scfg.precision == "int8"
     dev = x_blk.device
     # q[g, b] = rows of group g restricted to dimension block b
     q = q_blk.reshape(B, QG, B, db).permute(0, 2, 1, 3).contiguous()
-    qn2 = (q * q).sum(3)                                   # [g, b, QG]
+    if int8:
+        # int32 code norms are exact; one f32 scale per block at the end
+        q32 = q.to(torch.int32)
+        qn2 = scale2[None, :, None] * (q32 * q32).sum(3).to(torch.float32)
+    else:
+        qn2 = (q * q).sum(3)                               # [g, b, QG]
     skips = []
     shard_s, shard_i = [], []
     for v in range(V):
@@ -230,12 +326,20 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
                 acc = torch.where(mask, 0.0, torch.inf)
                 for t in range(B):
                     b = (g + offset + t) % B
-                    acc, skip = kops.partial_distance_update(
-                        x_blk[v, b, sl], xn2_blk[v, b, sl], q[g, b], qn2[g, b],
-                        acc, tau, prune=scfg.prune, metric=scfg.metric,
-                        tile_m=scfg.tile_m, tile_n=scfg.tile_n,
-                        tile_k=scfg.tile_k,
-                    )
+                    if int8:
+                        acc, skip = kops.int8_partial_distance_update(
+                            x_blk[v, b, sl], xn2_blk[v, b, sl], q[g, b],
+                            qn2[g, b], scale2[b], acc, tau, prune=scfg.prune,
+                            tile_m=scfg.tile_m, tile_n=scfg.tile_n,
+                            tile_k=scfg.tile_k,
+                        )
+                    else:
+                        acc, skip = kops.partial_distance_update(
+                            x_blk[v, b, sl], xn2_blk[v, b, sl], q[g, b],
+                            qn2[g, b], acc, tau, prune=scfg.prune,
+                            metric=scfg.metric, tile_m=scfg.tile_m,
+                            tile_n=scfg.tile_n, tile_k=scfg.tile_k,
+                        )
                     skips.append(skip.reshape(-1))
                 ids_c = row_ids[v, sl].expand(QG, chunk)
                 run_s, run_i = kops.running_topk_update(acc, ids_c, run_s,

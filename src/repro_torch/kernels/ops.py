@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import distance, ref, topk_update
+from repro_torch.kernels import distance, distance_int8, ref, topk_update
 
 
 def partial_distance_update(
@@ -40,6 +40,37 @@ def partial_distance_update(
         )
     out = ref.partial_distance_update_ref(
         x, xn2, q, qn2, acc, tau, prune=prune, metric=metric
+    )
+    return out, _tile_skip_map(acc, tile_m, tile_n)
+
+
+def int8_partial_distance_update(
+    x: torch.Tensor,
+    xn2: torch.Tensor,
+    q: torch.Tensor,
+    qn2: torch.Tensor,
+    scale2: torch.Tensor,
+    acc: torch.Tensor,
+    tau: torch.Tensor,
+    *,
+    prune: bool = True,
+    tile_m: int = 128,
+    tile_n: int = 128,
+    tile_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantized stage-1 scoring: acc' = acc + s²·‖Q−P‖²_b, pruned vs τ.
+
+    ``x``/``q`` are int8 codes on a shared per-dimension-block grid;
+    ``xn2``/``qn2`` carry the pre-scaled s²·Σcode² norms (f32). L2 only.
+    Returns (acc' [M,N] f32, tile_skip_map [m_tiles, n_tiles] int32).
+    """
+    if x.is_cuda:
+        return distance_int8.int8_partial_distance_update(
+            x, xn2, q, qn2, scale2, acc, tau, prune=prune,
+            tile_m=tile_m, tile_n=tile_n, tile_k=tile_k,
+        )
+    out = ref.int8_partial_distance_update_ref(
+        x, xn2, q, qn2, scale2, acc, tau, prune=prune, tile_k=tile_k
     )
     return out, _tile_skip_map(acc, tile_m, tile_n)
 
@@ -75,14 +106,20 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches and plain-version calls since the last reset."""
     return {
         "partial_distance_update": distance.partial_distance_update.launches,
+        "int8_partial_distance_update":
+            distance_int8.int8_partial_distance_update.launches,
         "running_topk_update": topk_update.running_topk_update.launches,
         "partial_distance_update_ref": ref.partial_distance_update_ref.calls,
+        "int8_partial_distance_update_ref":
+            ref.int8_partial_distance_update_ref.calls,
         "running_topk_ref": ref.running_topk_ref.calls,
     }
 
 
 def reset_launch_counts() -> None:
     distance.partial_distance_update.launches = 0
+    distance_int8.int8_partial_distance_update.launches = 0
     topk_update.running_topk_update.launches = 0
     ref.partial_distance_update_ref.calls = 0
+    ref.int8_partial_distance_update_ref.calls = 0
     ref.running_topk_ref.calls = 0

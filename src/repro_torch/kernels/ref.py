@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the two CUDA kernels of the ring.
+"""Plain PyTorch versions of the CUDA kernels of the ring.
 
 They define the semantics the kernels must match, run the CPU path of
 ``kernels.ops``, and are what ``chip_smoke.py`` holds each kernel against
@@ -45,6 +45,42 @@ def partial_distance_update_ref(
 
 
 partial_distance_update_ref.calls = 0
+
+
+def int8_partial_distance_update_ref(
+    x: torch.Tensor,       # [N, Db]  int8 corpus codes, this dimension block
+    xn2: torch.Tensor,     # [N]      f32, s²·Σcode² of this block
+    q: torch.Tensor,       # [M, Db]  int8 query codes (same grid as corpus)
+    qn2: torch.Tensor,     # [M]      f32, s²·Σcode² of this block
+    scale2: torch.Tensor,  # []/[1]   f32, shared s² of this block
+    acc: torch.Tensor,     # [M, N]   running partial distances; +inf = pruned
+    tau: torch.Tensor,     # [M]      per-query pruning threshold
+    *,
+    prune: bool = True,
+    tile_k: int = 128,
+) -> torch.Tensor:
+    """Quantized-L2 analogue of :func:`partial_distance_update_ref`, in
+    the TPU kernel's order: ``(acc + qn2) + xn2``, then once per
+    ``tile_k``-wide chunk of the contraction ``out −= (2·s²)·dot_chunk``,
+    then the alive mask and the prune. Each chunk's dot is taken in
+    float64, where every partial sum of int8 products is exact, so the
+    result is bit-identical to the CUDA kernel's int32 ``__dp4a`` sums.
+    """
+    int8_partial_distance_update_ref.calls += 1
+    alive = torch.isfinite(acc)
+    out = (acc + qn2[:, None]) + xn2[None, :]
+    two_s2 = 2.0 * scale2.reshape(())
+    qd, xd = q.double(), x.double()
+    for k0 in range(0, x.shape[1], tile_k):
+        dot = (qd[:, k0:k0 + tile_k] @ xd[:, k0:k0 + tile_k].T).float()
+        out = out - two_s2 * dot
+    out = torch.where(alive, out, torch.inf)
+    if prune:
+        out = torch.where(out > tau[:, None], torch.inf, out)
+    return out
+
+
+int8_partial_distance_update_ref.calls = 0
 
 
 def masked_topk_ref(scores: torch.Tensor, ids: torch.Tensor, k: int):

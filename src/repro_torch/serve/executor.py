@@ -1,7 +1,7 @@
 """Device-resident batched search executor on one GPU.
 
-The port of ``repro/serve/executor.py`` for ``tier="device"`` and
-``precision="fp32"``:
+The port of ``repro/serve/executor.py`` for ``tier="device"``, in both
+precisions:
 
 * **Corpus residency** — the sharded corpus, per-block norms, cluster ids
   and row ids are packed once on the host, block-major for the virtual
@@ -17,10 +17,17 @@ The port of ``repro/serve/executor.py`` for ``tier="device"`` and
   ladder of (qb, cap) buckets, as in the reference. A bucket's step is
   built once (``trace_counts``), batches above the largest qb bucket are
   split and merged host-side.
+* **int8 tier** (``precision="int8"``) — the resident corpus is the int8
+  codes of a per-dimension-block grid (4× smaller than fp32 rows) with
+  pre-scaled norms and each block's s²; the ring keeps the quantized
+  top ``K' = k·rerank_factor`` and :meth:`SpmdExecutor._rerank` rescores
+  those survivors exactly in fp32 on the card, against ``index.x``.
 
 Exactness: padding adds rows whose cluster id is -1 (match no probe) and
 queries whose τ is -inf (everything prunes). Pruning is off for
-``metric="ip"``, where partial sums are not monotone.
+``metric="ip"``, where partial sums are not monotone. The int8 tier's τ
+starts at +inf (an fp32-space prewarm is no bound in the quantized
+metric) and tightens within the quantized metric.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from repro_torch.core.pipeline import (
     ring_chunk_search,
 )
 from repro_torch.core.pruning import prewarm_tau
+from repro_torch.core.search import rerank_exact
 from repro_torch.core.router import load_aware_assignment, ring_offsets
 from repro_torch.core.types import PartitionPlan, SearchResult
 
@@ -54,10 +62,11 @@ class ExecutorConfig:
 
     ``qb_buckets`` is the query-count ladder (each entry rounded up to a
     multiple of the mesh's dimension-block count); the candidate-capacity
-    ladder is chunk·2^i up to the full shard capacity. ``use_pallas``,
-    ``x_dtype``, ``precision`` and ``rerank_factor`` are kept for
-    signature parity; values this slice does not carry raise
-    ``NotImplementedError``.
+    ladder is chunk·2^i up to the full shard capacity. ``precision`` is
+    ``"fp32"`` or ``"int8"`` (quantized stage 1 keeping
+    ``k·rerank_factor`` rows, then an exact fp32 re-rank; L2 only).
+    ``use_pallas`` and ``x_dtype`` are kept for signature parity; values
+    the port does not carry raise ``NotImplementedError``.
     """
 
     d_blocks: int = 1
@@ -65,8 +74,8 @@ class ExecutorConfig:
     qb_buckets: Tuple[int, ...] = (8, 32, 128)
     use_pallas: Optional[bool] = None
     x_dtype: str = "float32"
-    precision: str = "fp32"
-    rerank_factor: int = 4
+    precision: str = "fp32"         # "int8" → quantized stage-1 + fp32 re-rank
+    rerank_factor: int = 4          # int8: stage-1 keeps k·rerank_factor rows
     tile_m: int = 128
     tile_n: int = 128
     tile_k: int = 128
@@ -93,14 +102,19 @@ class SpmdExecutor:
         self.tier = tier
         self.index = index
         self.cfg = cfg or ExecutorConfig()
-        if self.cfg.precision != "fp32":
-            raise NotImplementedError(f"precision={self.cfg.precision!r}")
-        self.device = resolve_device(device)
-        self.mesh = tuple(mesh) if mesh is not None else (1, self.cfg.d_blocks)
-        V, B = self.mesh
         self.k = index.cfg.topk
         self.metric = index.cfg.metric
         self.precision = self.cfg.precision
+        if self.precision not in ("fp32", "int8"):
+            raise NotImplementedError(f"precision={self.precision!r}")
+        if self.precision == "int8":
+            if self.metric != "l2":
+                raise ValueError("the int8 tier is L2-only")
+            if self.cfg.rerank_factor < 1:
+                raise ValueError(f"rerank_factor={self.cfg.rerank_factor}")
+        self.device = resolve_device(device)
+        self.mesh = tuple(mesh) if mesh is not None else (1, self.cfg.d_blocks)
+        V, B = self.mesh
         prune = self.cfg.prune
         if prune is None:
             prune = index.cfg.enable_pruning
@@ -144,10 +158,17 @@ class SpmdExecutor:
         caps.append(self.cap_full)
         self.cap_buckets = tuple(caps)
 
-        # packed on the host (where preassign's layout lives), one upload
-        packed = resident_arrays(build_corpus_arrays(self.corpus, self._base_scfg),
-                                 self._base_scfg)
+        # packed on the host (where preassign's layout lives), one upload;
+        # the int8 grid is the index's seal-time one where the blocking
+        # matches the mesh, else refit to it (_mesh_quant_grid)
+        quant = index.int8_quant() if self.precision == "int8" else None
+        arrays = build_corpus_arrays(self.corpus, self._base_scfg, quant=quant)
+        self._quant_grid = arrays.pop("quant_grid", None)
+        packed = resident_arrays(arrays, self._base_scfg)
         self._resident = {name: a.to(self.device) for name, a in packed.items()}
+        # stage-2 re-rank lookup (ext id → packed row), built lazily
+        self._id_order: Optional[np.ndarray] = None
+        self._sorted_ids: Optional[np.ndarray] = None
 
         # step cache: (qb, cap, k, nprobe) → step; trace_counts counts builds
         self._steps: Dict[Tuple[int, int, int, int], object] = {}
@@ -164,7 +185,7 @@ class SpmdExecutor:
         width in ``nprobe`` (an int or an iterable; default the config's).
         :meth:`search_batch` pads narrower probe tables up to the nearest
         warmed width."""
-        k = k or self.k
+        k = self._k_step(k or self.k)
         if nprobe is None:
             widths = (self.index.cfg.nprobe,)
         elif np.ndim(nprobe) == 0:
@@ -184,8 +205,15 @@ class SpmdExecutor:
                         np.zeros((1, self.index.dim), np.float32), bscfg,
                         np.zeros((1, w), np.int32),
                         np.full((1,), np.inf, np.float32),
+                        quant_grid=self._quant_grid,
                     )
                     step(rows, qarr)
+
+    def _k_step(self, k: int) -> int:
+        """The ring's K: k, or the int8 tier's K' = k·rerank_factor."""
+        if self.precision == "int8":
+            return min(k * self.cfg.rerank_factor, self.index.nb)
+        return k
 
     # ----------------------------------------------------------- bucketing
     def _pick_bucket(self, ladder: Tuple[int, ...], need: int) -> int:
@@ -255,6 +283,7 @@ class SpmdExecutor:
                 torch.as_tensor(qarr["queries"]).to(dev),
                 torch.as_tensor(qarr["probes"]).to(dev),
                 torch.as_tensor(qarr["tau0"]).to(dev),
+                scale2=res.get("scale2"),
             )
 
         return step
@@ -301,7 +330,7 @@ class SpmdExecutor:
                     "compiled": any(p.stats["compiled"] for p in parts),
                     "splits": len(parts),
                     "precision": self.precision,
-                    "rerank_k": 0,
+                    "rerank_k": max(p.stats["rerank_k"] for p in parts),
                     "cold": 0,
                     "bytes_streamed": 0,
                     "prefetch_hits": 0,
@@ -332,12 +361,15 @@ class SpmdExecutor:
                     "cold": 0, "bytes_streamed": 0, "prefetch_hits": 0,
                 },
             )
-        # τ prewarm over the original probe table (pad columns never reach it)
+        int8 = self.precision == "int8"
+        # τ prewarm over the original probe table (pad columns never reach
+        # it); int8 stage 1 scores in the quantized metric, where an
+        # fp32-space τ is no upper bound, so it starts at +inf
         tau0 = (
             prewarm_tau(self.index, queries, probes, k,
                         self.index.cfg.prewarm_samples, self.metric,
                         dead_rows=dead_rows)
-            if self.prune
+            if self.prune and not int8
             else np.full((nq,), np.inf, np.float32)
         )
         # step-cache alignment: pad a narrower probe table (-2 columns match
@@ -348,17 +380,21 @@ class SpmdExecutor:
             if wider:
                 pad = np.full((nq, wider[0] - w), -2, np.int32)
                 probes = np.concatenate([probes.astype(np.int32), pad], axis=1)
+        k_step = self._k_step(k)
         qb_b = self._pick_bucket(self.qb_buckets, nq)
         bscfg = dataclasses.replace(
-            self._base_scfg, qb=qb_b, cap=cap_b, k=k, nprobe=probes.shape[1]
+            self._base_scfg, qb=qb_b, cap=cap_b, k=k_step, nprobe=probes.shape[1]
         )
-        qarr = build_query_arrays(queries, bscfg, probes, tau0)
+        qarr = build_query_arrays(queries, bscfg, probes, tau0,
+                                  quant_grid=self._quant_grid)
         compiles_before = self.compiles
         step = self._get_step(bscfg)
         gs, gi, st = step(rows, qarr)
         scores = gs[:nq].cpu().numpy()
         ids = gi[:nq].cpu().numpy().astype(np.int64)
         ids[~np.isfinite(scores)] = -1
+        if int8:
+            scores, ids = self._rerank(queries, scores, ids, k)
         st = st.cpu().numpy()
         dt = time.perf_counter() - t0
         self.dispatches += 1
@@ -379,12 +415,44 @@ class SpmdExecutor:
                 "compiled": self.compiles > compiles_before,
                 "splits": 1,
                 "precision": self.precision,
-                "rerank_k": 0,
+                "rerank_k": k_step if int8 else 0,
                 "cold": 0,
                 "bytes_streamed": 0,
                 "prefetch_hits": 0,
             },
         )
+
+    # -------------------------------------------------------------- rerank
+    def _rerank(self, queries: np.ndarray, s1_scores: np.ndarray,
+                s1_ids: np.ndarray, k: int):
+        """Exact fp32 re-rank of the int8 stage-1 survivors.
+
+        Stage 1 returns the quantized-metric top ``K'`` external ids; the
+        host maps them to packed rows (numpy ``searchsorted``, as in the
+        reference), and the card gathers those rows of ``index.x``,
+        scores them exactly and keeps the top k with a stable sort.
+        Invalid survivors stay +inf / -1; with ``K' < k`` (tiny corpus)
+        the result is padded to k."""
+        nq, kp = s1_ids.shape
+        if self._id_order is None:
+            self._id_order = np.argsort(self.index.ids, kind="stable")
+            self._sorted_ids = self.index.ids[self._id_order]
+        valid = np.isfinite(s1_scores) & (s1_ids >= 0)
+        safe = np.where(valid, s1_ids, self._sorted_ids[0])
+        pos = np.searchsorted(self._sorted_ids, safe)
+        rows = self._id_order[np.clip(pos, 0, self.index.nb - 1)]
+        dev = self.device
+        nk = min(k, kp)
+        sc, sel = rerank_exact(self.index, torch.as_tensor(queries).to(dev),
+                               torch.as_tensor(rows).to(dev),
+                               torch.as_tensor(valid).to(dev), nk)
+        sc = sc.cpu().numpy()
+        out_ids = np.take_along_axis(s1_ids, sel.cpu().numpy(), axis=1)
+        out_ids[~np.isfinite(sc)] = -1
+        if nk < k:                                   # tiny corpus: pad to k
+            sc = np.pad(sc, ((0, 0), (0, k - nk)), constant_values=np.inf)
+            out_ids = np.pad(out_ids, ((0, 0), (0, k - nk)), constant_values=-1)
+        return sc, out_ids
 
     # ----------------------------------------------------------- reporting
     @property

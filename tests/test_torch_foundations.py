@@ -96,12 +96,15 @@ def test_unsupported_options_raise():
     x = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     cfg = HarmonyConfig(dim=8, nlist=4, nprobe=2, topk=3, kmeans_iters=2)
     index = build_ivf(x, cfg, device="cpu")
-    for kw in (dict(precision="int8"), dict(x_dtype="bfloat16"),
-               dict(use_pallas=False)):
+    for kw in (dict(x_dtype="bfloat16"), dict(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             SpmdExecutor(index, ExecutorConfig(**kw), device="cpu")
     with pytest.raises(NotImplementedError):
         SpmdExecutor(index, tier="host", device="cpu")
+    # the int8 tier is L2-only, as the reference asserts
+    ip_index = build_ivf(x, cfg.replace(metric="ip"), device="cpu")
+    with pytest.raises(ValueError, match="L2"):
+        SpmdExecutor(ip_index, ExecutorConfig(precision="int8"), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

@@ -10,6 +10,11 @@ Tolerances are the reference's fp32 rule: finite entries agree at
 rtol = atol = 1e-4; the +inf pattern matches except where the value is
 within 1e-4·(1 + |τ|) of τ (the two sides group the sum differently);
 skip maps are equal; top-K ids are equal except across exact score ties.
+The int8 kernel's plain version keeps the TPU kernel's order of f32
+operations, so against Pallas interpret mode it is held at rtol = 1e-6,
+atol = 1e-5, and against the reference's jnp oracle (which groups the sum
+differently) at rtol = 1e-5, atol = 1e-4; on the card the kernel equals
+its plain version bit for bit.
 """
 
 import os
@@ -24,9 +29,10 @@ import torch
 
 from repro.kernels import ref as r_ref
 from repro.kernels.distance import partial_distance_update as pallas_distance
+from repro.kernels.distance_int8 import int8_partial_distance_update as pallas_int8
 from repro.kernels.ops import _tile_skip_map as r_skip_map
 from repro.kernels.topk_update import running_topk_update as pallas_topk
-from repro_torch.kernels import distance, ops, ref, topk_update
+from repro_torch.kernels import distance, distance_int8, ops, ref, topk_update
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = 1e-4
@@ -50,7 +56,7 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
-def assert_distance_close(got, want, tau):
+def assert_distance_close(got, want, tau, rtol=TOL, atol=TOL):
     got, want = np.asarray(got), np.asarray(want)
     tau = np.asarray(tau)[:, None]
     boundary = np.abs(np.where(np.isfinite(want), want, tau) - tau) <= TOL * (
@@ -58,7 +64,32 @@ def assert_distance_close(got, want, tau):
     mismatch_inf = np.isfinite(got) != np.isfinite(want)
     assert not (mismatch_inf & ~boundary).any(), "inf pattern diverges beyond fp ties"
     both = np.isfinite(got) & np.isfinite(want)
-    np.testing.assert_allclose(got[both], want[both], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got[both], want[both], rtol=rtol, atol=atol)
+
+
+def _mk_int8(m, n, d, seed=0, frac_pruned=0.3, dead_tile=None, extreme=False,
+             tight=None):
+    """int8 codes on one shared grid (s² = 0.01), their pre-scaled norms,
+    an accumulator with +inf holes and τ around the median distance.
+    ``extreme`` puts codes at ±127; ``tight`` (a row) gets τ = 0.5."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-127, 128) if not extreme else (-127, -126)
+    x = rng.integers(-127, 128, (n, d)).astype(np.int8)
+    q = rng.integers(lo, hi, (m, d)).astype(np.int8)
+    if extreme:
+        x[::2] = 127
+    s2 = np.float32(0.01)
+    xn2 = (s2 * (x.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+    qn2 = (s2 * (q.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+    acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+    acc[rng.random((m, n)) < frac_pruned] = np.inf
+    if dead_tile is not None:
+        acc[:, dead_tile] = np.inf
+    typical = float(s2) * 2 * 5376 * d
+    tau = (rng.uniform(0.8, 1.1, size=(m,)) * typical).astype(np.float32)
+    if tight is not None:
+        tau[tight] = 0.5
+    return x, xn2, q, qn2, s2, acc, tau
 
 
 def assert_topk_close(gs, gi, ws, wi):
@@ -150,6 +181,81 @@ def test_accumulation_reconstructs_exact_distance():
     np.testing.assert_allclose(acc.numpy(), want, rtol=2e-4, atol=2e-4)
 
 
+INT8_CASES = [
+    # (m, n, d, tile_m, tile_n, tile_k, extreme, dead tile, tight row)
+    (16, 48, 24, 8, 16, 8, False, None, 5),          # the reference's case
+    (8, 16, 32, 8, 16, 32, True, slice(0, 16), None),  # ±127, all dead
+    (130, 257, 96, 128, 128, 32, False, slice(0, 128), 3),  # ragged, 3 chunks
+    (5, 300, 30, 8, 16, 16, True, slice(16, 48), 0),  # ragged Db, 2 chunks
+    (128, 256, 128, 128, 128, 128, False, slice(128, 256), 7),  # 1x1 ring
+    (64, 256, 64, 32, 64, 128, False, None, None),    # 2x2 ring, small tiles
+]
+
+
+@pytest.mark.parametrize("m,n,d,tm,tn,tk,extreme,dead,tight", INT8_CASES)
+@pytest.mark.parametrize("prune", [True, False])
+def test_int8_plain_matches_pallas_and_reference(m, n, d, tm, tn, tk, extreme,
+                                                 dead, tight, prune):
+    x, xn2, q, qn2, s2, acc, tau = _mk_int8(m, n, d, seed=m * 7 + n,
+                                            dead_tile=dead, extreme=extreme,
+                                            tight=tight)
+    got, skip = ops.int8_partial_distance_update(
+        *_t(x, xn2, q, qn2), torch.tensor(s2), *_t(acc, tau), prune=prune,
+        tile_m=tm, tile_n=tn, tile_k=tk)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    assert skip.dtype == torch.int32
+    jx = [jnp.asarray(a) for a in (x, xn2, q, qn2, s2, acc, tau)]
+    p_out, p_skip = pallas_int8(*jx, prune=prune, tile_m=tm, tile_n=tn,
+                                tile_k=tk, interpret=True)
+    assert_distance_close(got.numpy(), p_out, tau, rtol=1e-6, atol=1e-5)
+    np.testing.assert_array_equal(skip.numpy(), np.asarray(p_skip))
+    want = r_ref.int8_partial_distance_update_ref(*jx, prune=prune)
+    assert_distance_close(got.numpy(), want, tau, rtol=1e-5, atol=1e-4)
+    if dead is not None:
+        assert not torch.isfinite(got[:, dead]).any()
+    if tight is not None and prune:
+        assert not torch.isfinite(got[tight]).any()
+
+
+def test_int8_chunked_fold_is_the_tpu_kernels_order():
+    """One subtract per tile_k chunk: the plain version equals an explicit
+    numpy replay of the TPU kernel's f32 operations bit for bit."""
+    x, xn2, q, qn2, s2, acc, tau = _mk_int8(9, 40, 70, seed=4)
+    got = ref.int8_partial_distance_update_ref(
+        *_t(x, xn2, q, qn2), torch.tensor(s2), *_t(acc, tau), tile_k=32)
+    out = (acc + qn2[:, None]) + xn2[None, :]
+    two_s2 = np.float32(2.0) * s2
+    for k0 in range(0, 70, 32):
+        dot = q[:, k0:k0 + 32].astype(np.int32) @ x[:, k0:k0 + 32].astype(np.int32).T
+        out = out - two_s2 * dot.astype(np.float32)
+    out = np.where(np.isfinite(acc), out, np.inf)
+    out = np.where(out > tau[:, None], np.inf, out)
+    assert got.numpy().tobytes() == out.astype(np.float32).tobytes()
+
+
+def test_int8_accumulation_reconstructs_quantized_distance():
+    """Summed over the ring's blocks, each with its own s², the updates
+    give Σ_b s_b²·‖Q_b − P_b‖²."""
+    rng = np.random.default_rng(1)
+    m, n, B, per = 12, 33, 4, 8
+    x = rng.integers(-127, 128, (n, B * per)).astype(np.int8)
+    q = rng.integers(-127, 128, (m, B * per)).astype(np.int8)
+    s2 = rng.uniform(1e-4, 1e-3, B).astype(np.float32)
+    acc = torch.zeros((m, n))
+    tau = torch.full((m,), torch.inf)
+    want = np.zeros((m, n))
+    for b in range(B):
+        xb = np.ascontiguousarray(x[:, b * per:(b + 1) * per])
+        qb = np.ascontiguousarray(q[:, b * per:(b + 1) * per])
+        xn2 = (s2[b] * (xb.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+        qn2 = (s2[b] * (qb.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+        acc, _ = ops.int8_partial_distance_update(
+            *_t(xb, xn2, qb, qn2), torch.tensor(s2[b]), acc, tau)
+        diff = qb[:, None, :].astype(np.int64) - xb[None, :, :]
+        want += float(s2[b]) * (diff ** 2).sum(-1)
+    np.testing.assert_allclose(acc.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
 def _mk_topk(m, c, k, seed=0, frac_invalid=0.2, run_filled=True, ties=False):
     rng = np.random.default_rng(seed)
     scores = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
@@ -220,9 +326,16 @@ def test_ops_on_cpu_use_plain_versions_only():
     arrs = _mk(8, 16, 32)
     ops.partial_distance_update(*_t(*arrs))
     ops.running_topk_update(*_t(*_mk_topk(8, 16, 4)), k=4)
+    x8, xn2, q8, qn2, s2, acc, tau = _mk_int8(8, 16, 32)
+    ops.int8_partial_distance_update(*_t(x8, xn2, q8, qn2), torch.tensor(s2),
+                                     *_t(acc, tau))
     counts = ops.launch_counts()
-    assert counts == {"partial_distance_update": 0, "running_topk_update": 0,
-                      "partial_distance_update_ref": 1, "running_topk_ref": 1}
+    assert counts == {"partial_distance_update": 0,
+                      "int8_partial_distance_update": 0,
+                      "running_topk_update": 0,
+                      "partial_distance_update_ref": 1,
+                      "int8_partial_distance_update_ref": 1,
+                      "running_topk_ref": 1}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 
@@ -236,11 +349,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 3)), k=3)
     with pytest.raises(ValueError, match="k="):
         topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 65)), k=65)
+    x, xn2, q, qn2, s2, acc, tau = _mk_int8(4, 8, 16)
+    args = (*_t(x, xn2, q, qn2), torch.tensor(s2), *_t(acc, tau))
+    with pytest.raises(ValueError, match="CUDA"):
+        distance_int8.int8_partial_distance_update(*args)
+    for tile_k in (0, 1025):
+        with pytest.raises(ValueError, match="tile_k"):
+            distance_int8.int8_partial_distance_update(*args, tile_k=tile_k)
 
 
 def test_kernel_modules_import_without_building():
     code = (
         "import repro_torch.kernels.distance, repro_torch.kernels.topk_update\n"
+        "import repro_torch.kernels.distance_int8\n"
         "import repro_torch.kernels.ops, repro_torch.serve\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._libs and not _build.build_log\n"
@@ -268,6 +389,16 @@ def test_cuda_kernels_match_plain_versions():
             assert_distance_close(got.cpu().numpy(), want.cpu().numpy(),
                                   arrs[5].cpu().numpy())
             assert torch.equal(skip, ops._tile_skip_map(arrs[4], 128, 128))
+    for m, n, d, tm, tn, tk, extreme, dead, tight in INT8_CASES:
+        x, xn2, q, qn2, s2, acc, tau = _mk_int8(m, n, d, seed=d, dead_tile=dead,
+                                                extreme=extreme, tight=tight)
+        args = [a.to(dev) for a in (*_t(x, xn2, q, qn2), torch.tensor(s2),
+                                    *_t(acc, tau))]
+        got, skip = distance_int8.int8_partial_distance_update(
+            *args, tile_m=tm, tile_n=tn, tile_k=tk)
+        want = ref.int8_partial_distance_update_ref(*args, tile_k=tk)
+        assert torch.equal(got, want)
+        assert torch.equal(skip, ops._tile_skip_map(args[5], tm, tn))
     for m, c, k in [(4, 256, 10), (64, 256, 40), (3, 4096, 64)]:
         for ties in (False, True):
             arrs = [a.to(dev) for a in _t(*_mk_topk(m, c, k, seed=c, ties=ties))]

@@ -1,7 +1,8 @@
 """The port's ring search on virtual V × B meshes against the JAX
 package: packing parity, the device gather, the top-k of the reference
-oracle for every geometry, and the tile-skip accounting of the
-reference executor on the 1 × 1 mesh."""
+oracle for every geometry (fp32, and the int8 tier's quantized top-K'
+against a brute force over the reference's codes), and the tile-skip
+accounting of the reference executor on the 1 × 1 mesh."""
 
 import dataclasses
 
@@ -14,6 +15,7 @@ from repro.config import HarmonyConfig as RCfg
 from repro.core import PartitionPlan as RPlan
 from repro.core import build_ivf as r_build
 from repro.core import preassign as r_preassign
+from repro.core import quantize_vectors as r_quantize
 from repro.core import search_oracle as r_oracle
 from repro.core.pipeline import SpmdConfig as RScfg
 from repro.core.pipeline import build_corpus_arrays as r_corpus_arrays
@@ -159,6 +161,61 @@ def test_tile_stats_equal_reference_executor_on_1x1(anns, prune):
         r = rex.search_batch(q[lo:hi])
         t = tex.search_batch(q[lo:hi])
         assert t.stats["buckets"] == r.stats["buckets"]
+        assert t.stats["tile_total"] == r.stats["tile_total"] > 0
+        assert t.stats["tile_skipped"] == r.stats["tile_skipped"]
+        assert_matches_oracle(t, r)
+
+
+@pytest.mark.parametrize("V,B", [(1, 1), (1, 2), (2, 2), (4, 2)])
+def test_int8_ring_returns_quantized_topk(anns, V, B):
+    """The int8 ring keeps the quantized top-K' of the probed rows: a
+    brute force with the reference's ``Int8Quant.scores`` on the
+    reference's codes at this mesh's grid, ids equal except across ties."""
+    ref, idx, q = anns
+    chunk, kp = 64, 20
+    _, corpus = _layout(idx, V, B, chunk)
+    scfg = SpmdConfig(v_shards=V, d_blocks=B, qb=16, cap=corpus.cap, dim=32,
+                      nprobe=4, k=kp, chunk=chunk, precision="int8")
+    arrays = build_corpus_arrays(corpus, scfg, quant=idx.int8_quant())
+    res = resident_arrays(arrays, scfg)
+    assert res["x_blk"].dtype == torch.int8 and tuple(res["scale2"].shape) == (B,)
+    probes = assign_queries(idx, q)
+    qa = build_query_arrays(q, scfg, probes, np.full(len(q), np.inf, np.float32),
+                            quant_grid=arrays["quant_grid"])
+    gs, gi, stats = ring_chunk_search(
+        scfg, res["x_blk"], res["xn2_blk"], res["cluster_ids"], res["row_ids"],
+        *(torch.from_numpy(qa[n]) for n in ("queries", "probes", "tau0")),
+        scale2=res["scale2"])
+    scores = gs.numpy()
+    ids = gi.numpy().astype(np.int64)
+    ids[~np.isfinite(scores)] = -1
+    rq = r_quantize(ref.x, B)
+    d8 = rq.scores(rq.encode(q))
+    member = np.zeros((len(q), ref.nlist), bool)
+    member[np.arange(len(q))[:, None], probes] = True
+    d8 = np.where(member[:, ref.cluster_of], d8, np.inf)
+    order = np.argsort(d8, axis=1, kind="stable")[:, :kp]
+    want_s = np.take_along_axis(d8, order, axis=1)
+    want_i = np.where(np.isfinite(want_s), ref.ids[order], -1)
+    assert_matches_oracle(type("R", (), dict(scores=scores, ids=ids)),
+                          type("W", (), dict(scores=want_s, ids=want_i)))
+    assert int(stats[1]) == V * B * (corpus.cap // chunk) * B
+
+
+@pytest.mark.parametrize("prune", [True, False])
+def test_int8_tile_stats_equal_reference_executor_on_1x1(anns, prune):
+    """τ starts at +inf on the int8 tier, so with B = 1 every skip comes
+    from the probe mask and the counts must equal the reference's."""
+    ref, idx, q = anns
+    kw = dict(chunk=64, qb_buckets=(8, 16), prune=prune, tile_m=8, tile_n=32,
+              precision="int8")
+    rex = RExecutor(ref, RExCfg(**kw))
+    tex = SpmdExecutor(idx, ExecutorConfig(**kw), device="cpu")
+    for lo, hi in ((0, 16), (3, 4), (5, 13)):
+        r = rex.search_batch(q[lo:hi])
+        t = tex.search_batch(q[lo:hi])
+        assert t.stats["buckets"] == r.stats["buckets"]
+        assert t.stats["rerank_k"] == r.stats["rerank_k"] == 20
         assert t.stats["tile_total"] == r.stats["tile_total"] > 0
         assert t.stats["tile_skipped"] == r.stats["tile_skipped"]
         assert_matches_oracle(t, r)
