@@ -12,8 +12,12 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    card at every shape the serving phases give it (M = QG in
    {4, 8, 16, 32, 64, 128}; fp32 distance at the CPU tests' tolerances,
    the int8 distance and the top-K bit for bit, identical skip maps),
-   then time kernel, plain version, a PyTorch library yardstick and the
-   bytes/operations bound at the main path's shapes (CUDA events).
+   and at the distance kernels' awkward geometries: logical tiles that
+   are not multiples of their 16 x 32 sub-tiles, chunked and unaligned
+   contractions, a tile alive in one sub-tile only. Then time kernel,
+   plain version, a PyTorch library yardstick and the bytes/operations
+   bound at the main path's shapes (CUDA events), with each distance
+   kernel's grid size (``ctas``) and its time when no tile is dead.
 3. Serving, fp32: build a SIFT1M-shaped IVF index on the card (1M × 128
    fp32 rows, nlist 1024, nprobe 16, top-10) and serve batches of
    1, 8, 32, 128 and 160 queries through ``SpmdExecutor.search_batch`` on
@@ -56,73 +60,54 @@ def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
+def port_on_path() -> bool:
+    """Put the checkout's ``src/`` first on the path; False without the port."""
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
         print(f"chip_smoke: the port's package is missing under {src}",
               file=sys.stderr)
-        return 3
+        return False
     sys.path.insert(0, str(src))
-    import numpy as np
+    return True
 
-    from repro_torch._device import resolve_device
-    from repro_torch.config import HarmonyConfig
-    from repro_torch.core import assign_queries, build_ivf, search_oracle, two_stage_search
-    from repro_torch.data import brute_force_topk, make_dataset, make_queries, recall_at_k
-    from repro_torch.kernels import _build, distance, distance_int8, ops, ref, topk_update
-    from repro_torch.serve import ExecutorConfig, SpmdExecutor
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    dev = resolve_device(None)
-    kind = torch.cuda.get_device_name(0)
-    log(phase="env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        device=kind, count=torch.cuda.device_count())
+def build_kernels() -> None:
+    """Build every ``csrc/*.cu`` (in parallel) and print ptxas's report:
+    registers, shared memory and spills of each kernel."""
+    from repro_torch.kernels import _build
 
-    # ---------------------------------------------------------- 1. build
     t0 = time.perf_counter()
     _build.load("partial_distance")
     log(phase="build", seconds=time.perf_counter() - t0,
         per_source=_build.build_seconds)
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "error")):
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
 
-    # ---------------------------------------------------------- 2. kernels
+
+def _one_subtile_alive(acc):
+    """acc [128, 384] on 128 x 128 tiles: tile 0 alive only at (100, 90),
+    in sub-tile (6, 2) of the kernels' 16 x 32 grid; tile 1 only at
+    (3, 130), in its sub-tile (0, 0); tile 2 dead. Skip map [[0, 0, 1]]."""
+    acc[:] = float("inf")
+    acc[100, 90] = 1.0
+    acc[3, 130] = 2.0
+    return acc
+
+
+def check_kernels(dev):
+    """Hold each kernel against its plain version on the card; returns
+    (max |err| per kernel, number of cases)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import distance, distance_int8, ops, ref, topk_update
+
     rng = np.random.default_rng(0)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def mk_dist(m, n, d, dead=True):
-        x = rng.normal(size=(n, d)).astype(np.float32)
-        q = rng.normal(size=(m, d)).astype(np.float32)
-        acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
-        acc[rng.random((m, n)) < 0.3] = np.inf
-        if dead:
-            acc[:, 128:256] = np.inf          # one whole 128-wide tile dead
-        tau = rng.uniform(d * 0.5, d * 3.0, size=(m,)).astype(np.float32)
-        return [t(a) for a in (x, (x ** 2).sum(1), q, (q ** 2).sum(1), acc, tau)]
-
-    def mk_topk(m, c, k, ties):
-        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
-        if ties:
-            s = np.round(s / 10).astype(np.float32)
-        s[rng.random((m, c)) < 0.2] = np.inf
-        s[0] = np.inf                          # an all-invalid row
-        ids = rng.integers(0, 10_000, size=(m, c)).astype(np.int32)
-        run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
-        run_i = rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32)
-        return [t(a) for a in (s, ids, run_s, run_i)]
 
     def dist_err(got, want, tau):
         got, want, tau = got.cpu().numpy(), want.cpu().numpy(), tau.cpu().numpy()[:, None]
@@ -133,7 +118,54 @@ def main() -> int:
         np.testing.assert_allclose(got[both], want[both], rtol=TOL, atol=TOL)
         return float(np.abs(got[both] - want[both]).max()) if both.any() else 0.0
 
-    def mk_int8(m, n, d, extreme=False, tight=False):
+    errs = {"partial_distance_update": 0.0, "int8_partial_distance_update": 0.0,
+            "running_topk_update": 0.0}
+    n_checked = 0
+    # M = QG = qb / B: qb in {8, 32, 128} on 1x1 and 2x2 gives every M here
+    ring_ms = (4, 8, 16, 32, 64, 128)
+    # (m, n, d, tiles, tile_k): the ring's shapes at both tilings, then
+    # logical tiles that are not multiples of the 16 x 32 sub-tile, Db = 96
+    # in chunks of 32 and 64, and Db = 30 (the unaligned staging path)
+    dist_cases = [(m, 256, d, tiles, 128) for m in ring_ms for d in (32, 64, 128)
+                  for tiles in ((128, 128), (32, 64))]
+    dist_cases += [(130, 257, 96, tiles, tk) for tiles in ((128, 128), (32, 64), (4, 100))
+                   for tk in (32, 64)]
+    dist_cases += [(128, 256, 128, (4, 100), 128), (64, 256, 30, (128, 128), 128),
+                   (64, 256, 30, (4, 100), 32)]
+    for m, n, d, tiles, tk in dist_cases:
+        for metric in ("l2", "ip"):
+            x = rng.normal(size=(n, d)).astype(np.float32)
+            q = rng.normal(size=(m, d)).astype(np.float32)
+            acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+            acc[rng.random((m, n)) < 0.3] = np.inf
+            acc[:, 128:256] = np.inf          # one whole 128-wide tile dead
+            tau = rng.uniform(d * 0.5, d * 3.0, size=(m,)).astype(np.float32)
+            a = [t(v) for v in (x, (x ** 2).sum(1), q, (q ** 2).sum(1), acc, tau)]
+            got, skip = distance.partial_distance_update(
+                *a, metric=metric, tile_m=tiles[0], tile_n=tiles[1], tile_k=tk)
+            want = ref.partial_distance_update_ref(*a, metric=metric, tile_k=tk)
+            torch.cuda.synchronize()
+            errs["partial_distance_update"] = max(
+                errs["partial_distance_update"], dist_err(got, want, a[5]))
+            assert torch.equal(skip, ops._tile_skip_map(a[4], *tiles)), \
+                f"partial_distance: skip map differs at {(m, n, d, tiles, tk)}"
+            n_checked += 1
+    # a logical tile alive in one sub-tile only: its skip bit stays 0
+    x = rng.normal(size=(384, 128)).astype(np.float32)
+    q = rng.normal(size=(128, 128)).astype(np.float32)
+    acc = _one_subtile_alive(np.zeros((128, 384), np.float32))
+    a = [t(v) for v in (x, (x ** 2).sum(1), q, (q ** 2).sum(1), acc,
+                        np.full(128, 1e30, np.float32))]
+    got, skip = distance.partial_distance_update(*a)
+    want = ref.partial_distance_update_ref(*a)
+    assert skip.tolist() == [[0, 0, 1]], f"partial_distance: one-sub-tile skip {skip}"
+    assert torch.isfinite(got).nonzero().tolist() == [[3, 130], [100, 90]], \
+        "partial_distance: a dead sub-tile came back finite"
+    errs["partial_distance_update"] = max(errs["partial_distance_update"],
+                                          dist_err(got, want, a[5]))
+    n_checked += 1
+
+    def mk_int8(m, n, d, extreme=False, tight=False, acc=None):
         x = rng.integers(-127, 128, size=(n, d)).astype(np.int8)
         q = rng.integers(-127, 128, size=(m, d)).astype(np.int8)
         if extreme:                            # codes at the clip, ±127
@@ -142,9 +174,10 @@ def main() -> int:
         s2 = np.float32(0.0123)
         xn2 = (s2 * (x.astype(np.int64) ** 2).sum(1)).astype(np.float32)
         qn2 = (s2 * (q.astype(np.int64) ** 2).sum(1)).astype(np.float32)
-        acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
-        acc[rng.random((m, n)) < 0.3] = np.inf
-        acc[:, 128:256] = np.inf               # one whole 128-wide tile dead
+        if acc is None:
+            acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+            acc[rng.random((m, n)) < 0.3] = np.inf
+            acc[:, 128:256] = np.inf           # one whole 128-wide tile dead
         tau = (rng.uniform(0.8, 1.1, size=(m,)) * 2 * 5376 * d * float(s2)).astype(np.float32)
         if extreme:                            # keep the far pairs finite
             tau[:] = np.inf
@@ -152,29 +185,17 @@ def main() -> int:
             tau[0] = 0.5                       # prunes the whole row
         return [t(x), t(xn2), t(q), t(qn2), torch.tensor(s2, device=dev), t(acc), t(tau)]
 
-    errs = {"partial_distance_update": 0.0, "int8_partial_distance_update": 0.0,
-            "running_topk_update": 0.0}
-    n_checked = 0
-    # M = QG = qb / B: qb in {8, 32, 128} on 1x1 and 2x2 gives every M here
-    ring_ms = (4, 8, 16, 32, 64, 128)
-    for m in ring_ms:
-        for d in (32, 64, 128):
-            for metric in ("l2", "ip"):
-                for tiles in ((128, 128), (32, 64)):
-                    a = mk_dist(m, 256, d)
-                    got, skip = distance.partial_distance_update(
-                        *a, metric=metric, tile_m=tiles[0], tile_n=tiles[1])
-                    want = ref.partial_distance_update_ref(*a, metric=metric)
-                    torch.cuda.synchronize()
-                    errs["partial_distance_update"] = max(
-                        errs["partial_distance_update"], dist_err(got, want, a[5]))
-                    assert torch.equal(skip, ops._tile_skip_map(a[4], *tiles)), \
-                        "partial_distance: skip map differs"
-                    n_checked += 1
-    # int8: M = QG as above, Db = 128/B; the ring folds the dot per tile_k
+    # int8: M = QG as above, Db = 128/B; the ring folds the dot per tile_k.
+    # Then ragged and 4 x 100 tiles, unaligned Db (30, 70) and an unaligned
+    # chunk (24): the word-at-a-time staging path.
     int8_cases = [(m, 256, d, tiles, 128, False, False) for m in ring_ms
                   for d in (32, 64, 128) for tiles in ((128, 128), (32, 64))]
-    int8_cases.append((130, 257, 96, (128, 128), 32, True, True))   # ragged, 3 chunks
+    int8_cases += [(130, 257, 96, (128, 128), 32, True, True),   # ragged, 3 chunks
+                   (130, 257, 70, (4, 100), 32, False, True),
+                   (130, 257, 30, (128, 128), 16, True, False),
+                   (130, 257, 64, (32, 64), 64, False, False),
+                   (128, 256, 128, (4, 100), 128, False, True),
+                   (64, 256, 64, (128, 128), 24, False, False)]
     for m, n, d, tiles, tk, extreme, tight in int8_cases:
         a = mk_int8(m, n, d, extreme, tight)
         got, skip = distance_int8.int8_partial_distance_update(
@@ -188,6 +209,27 @@ def main() -> int:
         if tight:
             assert not torch.isfinite(got[0]).any(), "int8: tight tau kept a value"
         n_checked += 1
+    a = mk_int8(128, 384, 128, extreme=True,
+                acc=_one_subtile_alive(np.zeros((128, 384), np.float32)))
+    got, skip = distance_int8.int8_partial_distance_update(*a)
+    assert torch.equal(got, ref.int8_partial_distance_update_ref(*a)), \
+        "int8 distance differs with one alive sub-tile"
+    assert skip.tolist() == [[0, 0, 1]], f"int8: one-sub-tile skip {skip}"
+    assert torch.isfinite(got).nonzero().tolist() == [[3, 130], [100, 90]], \
+        "int8: a dead sub-tile came back finite"
+    n_checked += 1
+
+    def mk_topk(m, c, k, ties):
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        if ties:
+            s = np.round(s / 10).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        s[0] = np.inf                          # an all-invalid row
+        ids = rng.integers(0, 10_000, size=(m, c)).astype(np.int32)
+        run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
+        run_i = rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32)
+        return [t(a) for a in (s, ids, run_s, run_i)]
+
     for m in ring_ms:
         for k in (10, 40):
             for ties in (False, True):
@@ -209,64 +251,112 @@ def main() -> int:
                     if torch.isfinite(ws).any() else 0.0)
                 n_checked += 1
     log(phase="kernels_checked", cases=n_checked, max_abs_err=errs)
+    return errs, n_checked
 
-    def time_ms(fn, reps=100):
-        """(device ms per call, host wall ms per call). The device time is
-        taken between CUDA events with the stream held in a spin while
-        all ``reps`` calls are queued, so launch overhead stays out of it;
-        the wall time per call includes it."""
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        call_ms = (time.perf_counter() - t0) / reps * 1e3
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2e8))          # ~0.1 s: the host queues ahead
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        e.synchronize()
-        return s.elapsed_time(e) / reps, call_ms
+
+def time_ms(fn, reps=100):
+    """(device ms per call, host wall ms per call). The device time is
+    taken between CUDA events with the stream held in a spin while all
+    ``reps`` calls are queued, so launch overhead stays out of it; the
+    wall time per call includes it."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / reps * 1e3
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))          # ~0.1 s: the host queues ahead
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps, call_ms
+
+
+def time_kernels(dev, smi):
+    """Time each kernel, its plain version and a PyTorch library call at
+    the main path's shapes; returns the first (1x1) row of each kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import distance, distance_int8, ops, ref, topk_update
+
+    rng = np.random.default_rng(1)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def acc_tau(m, n, lo, hi):
+        acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+        acc[rng.random((m, n)) < 0.3] = np.inf
+        acc[:, 128:256] = np.inf              # one whole 128-wide tile dead
+        return t(acc), t(rng.uniform(lo, hi, size=(m,)).astype(np.float32))
+
+    def revive(acc):
+        """acc with its dead tile given tile 0's values: every tile alive,
+        so no skip-map scan (``kernel_ms_all_alive``)."""
+        live = acc.clone()
+        live[:, 128:256] = acc[:, :128]
+        return live
 
     timed = {}
     # the main path's shapes: QG = qb/B rows per group, chunk = 256, Db = 128/B
     for (m, d, label) in ((128, 128, "mesh1x1_qb128"), (64, 64, "mesh2x2_qb128")):
-        a = mk_dist(m, 256, d)
+        x = rng.normal(size=(256, d)).astype(np.float32)
+        q = rng.normal(size=(m, d)).astype(np.float32)
+        a = [t(x), t((x ** 2).sum(1)), t(q), t((q ** 2).sum(1)),
+             *acc_tau(m, 256, d * 0.5, d * 3.0)]
         alive_tiles = int((ops._tile_skip_map(a[4], 128, 128) == 0).sum())
         base = a[4] + a[3][:, None] + a[1][None, :]
-        (ms, call), (plain, plain_call), (lib, lib_call) = (
+        live = revive(a[4])
+        (ms, call), (plain, plain_call), (lib, lib_call), (ms_live, _) = (
             time_ms(lambda: distance.partial_distance_update(*a)),
             time_ms(lambda: ref.partial_distance_update_ref(*a)),
-            time_ms(lambda: torch.addmm(base, a[2], a[0].T, alpha=-2)))
+            time_ms(lambda: torch.addmm(base, a[2], a[0].T, alpha=-2)),
+            time_ms(lambda: distance.partial_distance_update(*a[:4], live, a[5])))
         nbytes = 4 * (256 * d + 256 + m * d + m + 2 * m * 256 + m) + 4 * 2
         flops = 2 * min(m, 128) * 128 * d * alive_tiles + 4 * m * 256
         b, by = bound_ms(nbytes, flops)
         row = dict(kernel="partial_distance_update", shape=label, M=m, N=256, Db=d,
-                   kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                   bound_by=by, kernel_call_ms=call, plain_call_ms=plain_call,
-                   library_call_ms=lib_call, card=smi)
+                   ctas=distance.ctas(m, 256), kernel_ms=ms,
+                   kernel_ms_all_alive=ms_live, plain_ms=plain,
+                   library_ms=lib, bound_ms=b, bound_by=by, kernel_call_ms=call,
+                   plain_call_ms=plain_call, library_call_ms=lib_call, card=smi)
         log(**row)
         timed.setdefault("partial_distance_update", row)
     for (m, d, label) in ((128, 128, "mesh1x1_qb128"), (64, 64, "mesh2x2_qb128")):
-        a = mk_int8(m, 256, d)
+        x = rng.integers(-127, 128, size=(256, d)).astype(np.int8)
+        q = rng.integers(-127, 128, size=(m, d)).astype(np.int8)
+        s2 = np.float32(0.0123)
+        xn2 = (s2 * (x.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+        qn2 = (s2 * (q.astype(np.int64) ** 2).sum(1)).astype(np.float32)
+        lo = 0.8 * 2 * 5376 * d * float(s2)
+        a = [t(x), t(xn2), t(q), t(qn2), torch.tensor(s2, device=dev),
+             *acc_tau(m, 256, lo, lo * 1.1 / 0.8)]
         alive_tiles = int((ops._tile_skip_map(a[5], 128, 128) == 0).sum())
         base = a[5] + a[3][:, None] + a[1][None, :]
         two_s2 = 2.0 * a[4]
         xt = a[0].T                      # column-major, as _int_mm takes it
-        (ms, call), (plain, plain_call), (lib, lib_call) = (
+        live = revive(a[5])
+        (ms, call), (plain, plain_call), (lib, lib_call), (ms_live, _) = (
             time_ms(lambda: distance_int8.int8_partial_distance_update(*a)),
             time_ms(lambda: ref.int8_partial_distance_update_ref(*a)),
-            time_ms(lambda: base - two_s2 * torch._int_mm(a[2], xt).float()))
+            time_ms(lambda: base - two_s2 * torch._int_mm(a[2], xt).float()),
+            time_ms(lambda: distance_int8.int8_partial_distance_update(*a[:5], live, a[6])))
         nbytes = 256 * d + m * d + 4 * (256 + 2 * m + 2 * m * 256) + 4
         int8_ops = 2 * min(m, 128) * 128 * d * alive_tiles
         b, by = bound_ms(nbytes, 4 * m * 256, int8_ops)
         row = dict(kernel="int8_partial_distance_update", shape=label, M=m, N=256,
-                   Db=d, kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                   bound_by=by, library_call="torch._int_mm(q, x.T) + f32 combine",
+                   Db=d, ctas=distance_int8.ctas(m, 256), kernel_ms=ms,
+                   kernel_ms_all_alive=ms_live,
+                   plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                   library_call="torch._int_mm(q, x.T) + f32 combine",
                    kernel_call_ms=call, plain_call_ms=plain_call,
                    library_call_ms=lib_call, card=smi)
         log(**row)
@@ -274,12 +364,16 @@ def main() -> int:
     for (m, k, label) in ((128, 10, "mesh1x1_qb128"), (64, 10, "mesh2x2_qb128"),
                           (128, 40, "mesh1x1_qb128_int8"), (64, 40, "mesh2x2_qb128_int8")):
         c = 256
-        a = mk_topk(m, c, k, False)
-        ids_row = a[1][0].expand(m, c)
-        cat = torch.cat([a[2], a[0]], dim=1)
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        ids_row = t(rng.integers(0, 10_000, size=(c,)).astype(np.int32)).expand(m, c)
+        run_s = t(np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32))
+        run_i = t(rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32))
+        s = t(s)
+        cat = torch.cat([run_s, s], dim=1)
         (ms, call), (plain, plain_call), (lib, lib_call) = (
-            time_ms(lambda: topk_update.running_topk_update(a[0], ids_row, a[2], a[3], k=k)),
-            time_ms(lambda: ref.running_topk_ref(a[0], ids_row, a[2], a[3], k=k)),
+            time_ms(lambda: topk_update.running_topk_update(s, ids_row, run_s, run_i, k=k)),
+            time_ms(lambda: ref.running_topk_ref(s, ids_row, run_s, run_i, k=k)),
             time_ms(lambda: torch.topk(cat, k, dim=1, largest=False)))
         nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
         b, by = bound_ms(nbytes, m * k * c)
@@ -289,6 +383,42 @@ def main() -> int:
                    library_call_ms=lib_call, card=smi)
         log(**row)
         timed.setdefault("running_topk_update", row)
+    return timed
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    if not port_on_path():
+        return 3
+    import numpy as np
+
+    from repro_torch._device import resolve_device
+    from repro_torch.config import HarmonyConfig
+    from repro_torch.core import assign_queries, build_ivf, search_oracle, two_stage_search
+    from repro_torch.data import brute_force_topk, make_dataset, make_queries, recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ExecutorConfig, SpmdExecutor
+
+    # the plain versions and the yardsticks in full fp32, as the kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = resolve_device(None)
+    kind = torch.cuda.get_device_name(0)
+    log(phase="env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+        device=kind, count=torch.cuda.device_count())
+
+    build_kernels()                                     # 1. build
+    errs, _ = check_kernels(dev)                        # 2. kernels
+    timed = time_kernels(dev, smi)
 
     # ---------------------------------------------------------- 3. serving
     nb, nlist, ncomp = 1_000_000, 1024, 256

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own
 shared library, ``<repo>/build/repro_torch_kernels/<name>-<hash>.so``,
-where the hash is taken over the source, so an edited source is never
-served a stale build. The first call builds every source at once, one
-``nvcc`` process each, in parallel, and loads them with ``ctypes``.
+where the hash is taken over the source and the shared ``csrc/*.cuh``
+headers, so an edited source is never served a stale build. The first
+call builds every source at once, one ``nvcc`` process each, in
+parallel, and loads them with ``ctypes``.
 Nothing is built when a module is imported.
 """
 
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,44 +1,88 @@
 // Partial-distance accumulate + monotone prune, hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `partial_distance_update` of
-// src/repro/kernels/distance.py (body `_kernel`). One dimension block's step:
-//   L2: acc' = (acc + qn2[m] + xn2[n]) - 2 * dot(q[m], x[n])
-//   IP: acc' = acc - dot(q[m], x[n])
-// +inf entries of acc stay +inf; with `prune`, acc' > tau[m] becomes +inf.
+// src/repro/kernels/distance.py (body `_kernel`). One dimension block's step,
+// in the TPU kernel's order:
+//   L2: out = (acc + qn2[m]) + xn2[n]; IP: out = acc
+//   for each tile_k-wide chunk c of the contraction:
+//     out -= scale * dot_c(q[m], x[n])          (scale 2 for L2, 1 for IP)
+// +inf entries of acc stay +inf; with `prune`, out > tau[m] becomes +inf.
 // It also writes an int32 skip map [ceil(M/tile_m), ceil(N/tile_n)]: 1 where
-// every acc entry of the tile was +inf on entry, in which case the tile's
-// product is skipped (the TPU kernel's `pl.when(any_alive)`).
+// every acc entry of the logical tile was +inf on entry (the TPU kernel's
+// `pl.when(any_alive)`).
 //
 // What bounds it on the H100: at the ring's shapes (M = queries per group
 // <= 128, N = chunk = 256, Db = 128/B <= 128) one call moves about
-// 4*(M*N*2 + N*Db + M*Db) bytes and does 2*M*N*Db FMA flops, well under a
-// microsecond of either bound at 3.35 TB/s or 67 TFLOP/s fp32. With 2 CTAs
-// per call the kernel is bound by its launch and its serial latency, not
-// by bytes or flops.
+// 4*(M*N*2 + N*Db + M*Db) bytes (0.14 us at 3.35 TB/s) and does 2*M*N*Db
+// flops (0.13 us at 67 TFLOP/s fp32). Neither bound is near a launch: the
+// kernel is bound by its launch and by the latency chain of its slowest
+// CTA: the acc loads and a barrier, the staged window, the FMA chain, the
+// store, and for a logical tile whose first sub-tile is dead, the scan of
+// the tile.
 //
-// Design: one CTA per logical tile_m x tile_n output tile (grid
-// (ceil(N/tile_n), ceil(M/tile_m))), so the skip map has the reference's
-// granularity. The CTA masks the ragged edges itself; no host padding. It
-// first tests the tile for any finite acc entry (__syncthreads_or) and, if
-// there is none, writes +inf and its skip bit and returns. Otherwise 256
-// threads (16 x 16) each own an 8 x 8 register micro-tile of a 128 x 128
-// sub-block and stream the contraction through shared memory 32 columns at
-// a time (stride-16 ownership: conflict-free shared reads, 64-byte row
-// segments on the store). The dot is a plain fp32 FMA chain: no TF32 and no
-// tensor cores, which would move pruning decisions near tau. Epilogue order
-// is the TPU kernel's: (acc + qn2 + xn2) - scale * dot, then the prune.
-// wgmma/TMA and several tiles per CTA are later work.
+// Design: many CTAs per logical tile (subtile.cuh): each 16 x 32 output
+// sub-tile is one CTA of 256 threads, so (M, N) = (128, 256) runs 64 CTAs
+// and (64, 256) 32. A CTA first
+// issues 16-byte cp.async copies of its q and x rows for the first
+// contraction window (up to 128 columns of one tile_k chunk) into padded
+// shared rows, then, while they fly, loads its acc entries, norms and tau
+// and tests the acc entries (__syncthreads_or). A dead sub-tile writes +inf
+// and returns. The CTA at sub-index (0, 0) of a logical tile also owns the
+// tile's skip bit: 0 at once if its own sub-tile is alive, else it scans the
+// whole tile's acc, 16 loads of 16 bytes a thread in flight at once (a
+// 128 x 128 tile in one round). Each window needs one barrier. The two
+// 128-thread halves of the CTA take the two halves of the window; each
+// thread owns 2 x 2 outputs (rows ty, ty+8, columns tx, tx+16) and reads
+// float4s of the shared rows, conflict-free (row pitch 132 floats); the
+// second half hands its dots to the first through shared memory. The dot
+// stays on the FMA pipes in fp32: no TF32, which would move pruning
+// decisions near tau. Each chunk is folded with __fsub_rn/__fmul_rn, so nvcc
+// cannot contract the fold into an FMA and change the TPU kernel's order.
+// Rows or chunks that are not 16-byte aligned (Db or tile_k not a multiple
+// of 4) are staged 4 bytes a copy instead, zero-padded to whole float4s.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "subtile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kSub = 128;       // sub-block edge a CTA computes at once
-constexpr int kMicro = 8;       // outputs per thread along each axis
-constexpr int kKc = 32;         // contraction columns staged per step
+constexpr int kBM = 16;           // sub-tile rows (queries)
+constexpr int kBN = 32;           // sub-tile columns (candidates)
+constexpr int kThreads = 256;     // two halves (kh) of 128 threads
+constexpr int kKs = 128;          // contraction columns staged at once
+constexpr int kLd = kKs + 4;      // padded shared row (floats)
+
+// Copy columns [k0, k0 + w) of the sub-tile's q and x rows into shared
+// memory and commit them as one cp.async group; on the scalar path the
+// columns up to the next multiple of 4 are zeroed.
+__device__ __forceinline__ void stage(float* qs, float* xs, const float* __restrict__ q,
+                      const float* __restrict__ x, int D, const subtile::Sub& s,
+                      int k0, int w, bool vec) {
+  const int nrows = s.rows + s.cols;
+  if (vec) {
+    const int per = w / 4;
+    for (int e = threadIdx.x; e < nrows * per; e += kThreads) {
+      const int r = e / per, p = 4 * (e % per);
+      if (r < s.rows)
+        subtile::cp_async16(qs + r * kLd + p, q + (size_t)(s.r0 + r) * D + k0 + p);
+      else
+        subtile::cp_async16(xs + (r - s.rows) * kLd + p,
+                            x + (size_t)(s.c0 + r - s.rows) * D + k0 + p);
+    }
+  } else {
+    const int w4 = (w + 3) & ~3;
+    for (int e = threadIdx.x; e < nrows * w4; e += kThreads) {
+      const int r = e / w4, k = e % w4;
+      float* dst = r < s.rows ? qs + r * kLd + k : xs + (r - s.rows) * kLd + k;
+      const float* src = r < s.rows ? q + (size_t)(s.r0 + r) * D
+                                    : x + (size_t)(s.c0 + r - s.rows) * D;
+      if (k < w)
+        subtile::cp_async4(dst, src + k0 + k);
+      else
+        *dst = 0.0f;
+    }
+  }
+  subtile::cp_async_commit();
+}
 
 __global__ void __launch_bounds__(kThreads)
 partial_distance_kernel(const float* __restrict__ x,     // [N, D]
@@ -50,107 +94,145 @@ partial_distance_kernel(const float* __restrict__ x,     // [N, D]
                         float* __restrict__ out,         // [M, N]
                         int* __restrict__ skip,          // [mt, nt]
                         int M, int N, int D, int tile_m, int tile_n,
-                        int l2, int prune) {
-  __shared__ float qs[kKc][kSub + 1];
-  __shared__ float xs[kKc][kSub + 1];
+                        int tile_k, int l2, int prune) {
+  __shared__ __align__(16) float qs[kBM * kLd];
+  __shared__ __align__(16) float xs[kBN * kLd];
+  __shared__ float4 part[kThreads / 2];           // the kh = 1 half's dots
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * tile_m, n0 = blockIdx.x * tile_n;
-  const int m_end = min(m0 + tile_m, M), n_end = min(n0 + tile_n, N);
-  const int tm = m_end - m0, tn = n_end - n0;
+  const subtile::Sub s = subtile::locate<kBM, kBN>(M, N, tile_m, tile_n);
+  if (s.rows <= 0 || s.cols <= 0) return;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16 % 8, kh = tid / 128;
+  const bool vec = D % 4 == 0 && tile_k % 4 == 0 && subtile::aligned16(x) &&
+                   subtile::aligned16(q);
 
-  // 1. any alive entry in the tile?
-  int alive = 0;
-  for (int e = tid; e < tm * tn && !alive; e += kThreads) {
-    const int r = e / tn, c = e % tn;
-    alive = isfinite(acc[(size_t)(m0 + r) * N + n0 + c]);
+  // 1. the first window's copies fly while acc is tested
+  stage(qs, xs, q, x, D, s, 0, subtile::imin(kKs, subtile::imin(tile_k, D)), vec);
+
+  // this thread's outputs (rows ty, ty+8; columns tx, tx+16): acc, norms
+  // and tau are all loaded before the first barrier
+  float a[2][2], qn[2], xn[2], t[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = s.r0 + subtile::imin(ty + 8 * i, s.rows - 1);
+    const int n = s.c0 + subtile::imin(tx + 16 * i, s.cols - 1);
+    qn[i] = l2 ? __ldg(qn2 + m) : 0.0f;
+    xn[i] = l2 ? __ldg(xn2 + n) : 0.0f;
+    t[i] = __ldg(tau + m);
   }
-  alive = __syncthreads_or(alive);
-  if (tid == 0) skip[blockIdx.y * gridDim.x + blockIdx.x] = alive ? 0 : 1;
-  if (!alive) {
-    for (int e = tid; e < tm * tn; e += kThreads) {
-      const int r = e / tn, c = e % tn;
-      out[(size_t)(m0 + r) * N + n0 + c] = INFINITY;
+  int any = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = ty + 8 * i, c = tx + 16 * j;
+      a[i][j] = (r < s.rows && c < s.cols)
+                    ? __ldg(acc + (size_t)(s.r0 + r) * N + s.c0 + c) : INFINITY;
+      any |= isfinite(a[i][j]);
     }
+  const int alive = __syncthreads_or(any);
+  if (s.si == 0 && s.sj == 0) {
+    const int tile = alive || subtile::tile_alive<kThreads>(acc, N, s);
+    if (tid == 0) skip[s.tile_i * subtile::cdiv(N, tile_n) + s.tile_j] = tile ? 0 : 1;
+  }
+  if (!alive) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = ty + 8 * i, c = tx + 16 * j;
+        if (!kh && r < s.rows && c < s.cols)
+          out[(size_t)(s.r0 + r) * N + s.c0 + c] = INFINITY;
+      }
+    subtile::cp_async_wait_all();
     return;
   }
 
+  // 2. base = (acc + qn2) + xn2 (L2) or acc (IP)
+  float v[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      v[i][j] = l2 ? __fadd_rn(__fadd_rn(a[i][j], qn[i]), xn[j]) : a[i][j];
+
+  // 3. one subtract per tile_k chunk; a chunk is staged kKs columns at a
+  // time. The two halves of the CTA take the two halves of each window, and
+  // the kh = 1 half hands its dots over through shared memory.
   const float scale = l2 ? 2.0f : 1.0f;
-  for (int sm = 0; sm < tm; sm += kSub) {
-    for (int sn = 0; sn < tn; sn += kSub) {
-      const int rows = min(kSub, tm - sm), cols = min(kSub, tn - sn);
-      const float* qb = q + (size_t)(m0 + sm) * D;
-      const float* xb = x + (size_t)(n0 + sn) * D;
-      float dot[kMicro][kMicro];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) dot[i][j] = 0.0f;
-
-      for (int k0 = 0; k0 < D; k0 += kKc) {
-        // stage q[rows, k0:k0+kKc] and x[cols, k0:k0+kKc], transposed,
-        // zero outside the tile; consecutive threads read consecutive k
-        for (int e = tid; e < kSub * kKc; e += kThreads) {
-          const int r = e / kKc, k = e % kKc, kk = k0 + k;
-          qs[k][r] = (r < rows && kk < D) ? qb[(size_t)r * D + kk] : 0.0f;
-          xs[k][r] = (r < cols && kk < D) ? xb[(size_t)r * D + kk] : 0.0f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < kKc; ++k) {
-          float a[kMicro], b[kMicro];
-#pragma unroll
-          for (int i = 0; i < kMicro; ++i) a[i] = qs[k][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < kMicro; ++j) b[j] = xs[k][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-            for (int j = 0; j < kMicro; ++j)
-              dot[i][j] = fmaf(a[i], b[j], dot[i][j]);
-        }
-        __syncthreads();
+  const float* qa = qs + ty * kLd;
+  const float* qb = qs + (ty + 8) * kLd;
+  const float* xa = xs + tx * kLd;
+  const float* xb = xs + (tx + 16) * kLd;
+  for (int c0 = 0; c0 < D; c0 += tile_k) {
+    const int c1 = subtile::imin(c0 + tile_k, D);
+    float d00 = 0.0f, d01 = 0.0f, d10 = 0.0f, d11 = 0.0f;
+    for (int k0 = c0; k0 < c1; k0 += kKs) {
+      const int w = subtile::imin(kKs, c1 - k0);
+      if (k0 > 0) {
+        __syncthreads();                       // the previous window is read
+        stage(qs, xs, q, x, D, s, k0, w, vec);
       }
-
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= rows) continue;
-        const int m = m0 + sm + r;
-        const float qn = l2 ? qn2[m] : 0.0f;
-        const float t = tau[m];
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) {
-          const int c = tx + 16 * j;
-          if (c >= cols) continue;
-          const int n = n0 + sn + c;
-          const float a_in = acc[(size_t)m * N + n];
-          float v = INFINITY;
-          if (isfinite(a_in)) {
-            const float base = l2 ? (a_in + qn) + xn2[n] : a_in;
-            v = base - scale * dot[i][j];
-            if (prune && v > t) v = INFINITY;
-          }
-          out[(size_t)m * N + n] = v;
-        }
+      subtile::cp_async_wait_all();
+      __syncthreads();
+      const int w4 = (w + 3) & ~3, half = (w4 / 4 + 1) / 2 * 4;
+#pragma unroll 4
+      for (int k = kh ? half : 0; k < (kh ? w4 : half); k += 4) {
+        const float4 p0 = *reinterpret_cast<const float4*>(qa + k);
+        const float4 p1 = *reinterpret_cast<const float4*>(qb + k);
+        const float4 y0 = *reinterpret_cast<const float4*>(xa + k);
+        const float4 y1 = *reinterpret_cast<const float4*>(xb + k);
+        d00 = fmaf(p0.x, y0.x, d00); d00 = fmaf(p0.y, y0.y, d00);
+        d00 = fmaf(p0.z, y0.z, d00); d00 = fmaf(p0.w, y0.w, d00);
+        d01 = fmaf(p0.x, y1.x, d01); d01 = fmaf(p0.y, y1.y, d01);
+        d01 = fmaf(p0.z, y1.z, d01); d01 = fmaf(p0.w, y1.w, d01);
+        d10 = fmaf(p1.x, y0.x, d10); d10 = fmaf(p1.y, y0.y, d10);
+        d10 = fmaf(p1.z, y0.z, d10); d10 = fmaf(p1.w, y0.w, d10);
+        d11 = fmaf(p1.x, y1.x, d11); d11 = fmaf(p1.y, y1.y, d11);
+        d11 = fmaf(p1.z, y1.z, d11); d11 = fmaf(p1.w, y1.w, d11);
       }
     }
+    if (kh) part[tid - 128] = make_float4(d00, d01, d10, d11);
+    __syncthreads();
+    if (kh) continue;
+    const float4 h = part[tid];
+    d00 += h.x; d01 += h.y; d10 += h.z; d11 += h.w;
+    v[0][0] = __fsub_rn(v[0][0], __fmul_rn(scale, d00));
+    v[0][1] = __fsub_rn(v[0][1], __fmul_rn(scale, d01));
+    v[1][0] = __fsub_rn(v[1][0], __fmul_rn(scale, d10));
+    v[1][1] = __fsub_rn(v[1][1], __fmul_rn(scale, d11));
   }
+
+  // 4. epilogue (the kh = 0 half): dead stays +inf, then the prune
+  if (kh) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = ty + 8 * i, c = tx + 16 * j;
+      if (r >= s.rows || c >= s.cols) continue;
+      float o = isfinite(a[i][j]) ? v[i][j] : INFINITY;
+      if (prune && o > t[i]) o = INFINITY;
+      out[(size_t)(s.r0 + r) * N + s.c0 + c] = o;
+    }
 }
 
 }  // namespace
 
+extern "C" long long partial_distance_ctas(int M, int N, int tile_m, int tile_n) {
+  return subtile::grid_ctas<kBM, kBN>(M, N, tile_m, tile_n);
+}
+
 extern "C" int partial_distance_update_f32(
     const void* x, const void* xn2, const void* q, const void* qn2,
     const void* acc, const void* tau, void* out, void* skip,
-    int M, int N, int D, int tile_m, int tile_n, int l2, int prune,
+    int M, int N, int D, int tile_m, int tile_n, int tile_k, int l2, int prune,
     void* stream) {
-  const dim3 grid((N + tile_n - 1) / tile_n, (M + tile_m - 1) / tile_m);
-  partial_distance_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const long long ctas = partial_distance_ctas(M, N, tile_m, tile_n);
+  if (ctas <= 0 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  partial_distance_kernel<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)xn2, (const float*)q, (const float*)qn2,
       (const float*)acc, (const float*)tau, (float*)out, (int*)skip,
-      M, N, D, tile_m, tile_n, l2, prune);
+      M, N, D, tile_m, tile_n, tile_k, l2, prune);
   return (int)cudaGetLastError();
 }
 

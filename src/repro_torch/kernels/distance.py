@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-_SIG = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def _lib():
@@ -26,7 +26,14 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.partial_distance_error_string.argtypes = [ctypes.c_int]
         lib.partial_distance_error_string.restype = ctypes.c_char_p
+        lib.partial_distance_ctas.argtypes = [ctypes.c_int] * 4
+        lib.partial_distance_ctas.restype = ctypes.c_longlong
     return lib
+
+
+def ctas(m: int, n: int, tile_m: int = 128, tile_n: int = 128) -> int:
+    """The kernel's grid size (CTAs per launch) at [m, n] outputs."""
+    return int(_lib().partial_distance_ctas(m, n, tile_m, tile_n))
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
@@ -56,10 +63,9 @@ def partial_distance_update(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (acc' [M, N] f32, tile_skipped [m_tiles, n_tiles] int32).
 
-    ``tile_m``/``tile_n`` set the skip map's granularity (one CTA per
-    tile). ``tile_k`` is accepted for signature parity; the kernel stages
-    the contraction 32 columns at a time and subtracts the whole dot once,
-    which is the TPU kernel's order whenever Db ≤ tile_k.
+    ``tile_m``/``tile_n`` set the skip map's granularity (each tile is
+    covered by several CTAs); ``tile_k`` is the contraction chunk after
+    which ``scale·dot`` is subtracted, as in the TPU kernel.
     """
     if metric not in ("l2", "ip"):
         raise ValueError(metric)
@@ -87,7 +93,7 @@ def partial_distance_update(
         err = lib.partial_distance_update_f32(
             x.data_ptr(), xn2.data_ptr(), q.data_ptr(), qn2.data_ptr(),
             acc.data_ptr(), tau.data_ptr(), out.data_ptr(), skip.data_ptr(),
-            m, n, d, tile_m, tile_n, int(metric == "l2"), int(bool(prune)),
+            m, n, d, tile_m, tile_n, tile_k, int(metric == "l2"), int(bool(prune)),
             stream,
         )
     if err:

@@ -29,7 +29,14 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.partial_distance_int8_error_string.argtypes = [ctypes.c_int]
         lib.partial_distance_int8_error_string.restype = ctypes.c_char_p
+        lib.int8_partial_distance_ctas.argtypes = [ctypes.c_int] * 4
+        lib.int8_partial_distance_ctas.restype = ctypes.c_longlong
     return lib
+
+
+def ctas(m: int, n: int, tile_m: int = 128, tile_n: int = 128) -> int:
+    """The kernel's grid size (CTAs per launch) at [m, n] outputs."""
+    return int(_lib().int8_partial_distance_ctas(m, n, tile_m, tile_n))
 
 
 def int8_partial_distance_update(
@@ -48,9 +55,10 @@ def int8_partial_distance_update(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (acc' [M, N] f32, tile_skipped [m_tiles, n_tiles] int32).
 
-    ``tile_m``/``tile_n`` set the skip map's granularity (one CTA per
-    tile); ``tile_k`` is the contraction chunk after which the int32 dot
-    is folded into the f32 value, as in the TPU kernel.
+    ``tile_m``/``tile_n`` set the skip map's granularity (each tile is
+    covered by several CTAs); ``tile_k`` is the contraction chunk after
+    which the int32 dot is folded into the f32 value, as in the TPU
+    kernel.
     """
     if tile_m <= 0 or tile_n <= 0:
         raise ValueError((tile_m, tile_n))

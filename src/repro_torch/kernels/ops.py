@@ -39,7 +39,7 @@ def partial_distance_update(
             tile_m=tile_m, tile_n=tile_n, tile_k=tile_k,
         )
     out = ref.partial_distance_update_ref(
-        x, xn2, q, qn2, acc, tau, prune=prune, metric=metric
+        x, xn2, q, qn2, acc, tau, prune=prune, metric=metric, tile_k=tile_k
     )
     return out, _tile_skip_map(acc, tile_m, tile_n)
 

@@ -22,25 +22,28 @@ def partial_distance_update_ref(
     *,
     prune: bool = True,
     metric: str = "l2",
+    tile_k: int = 128,
 ) -> torch.Tensor:
     """acc' = acc + d_b²  (or −partial dot), then prune acc' > τ → +inf.
 
-    +inf entries stay +inf (pruned pairs never resurrect).
+    In the TPU kernel's order: ``(acc + qn2) + xn2`` (L2) or ``acc``
+    (IP), then once per ``tile_k``-wide chunk of the contraction
+    ``out −= scale·dot_chunk`` (scale 2 for L2, 1 for IP), then the
+    alive mask and the prune. +inf entries stay +inf (pruned pairs never
+    resurrect).
     """
     partial_distance_update_ref.calls += 1
-    xf = x.to(torch.float32)
-    qf = q.to(torch.float32)
     if metric == "l2":
-        part = (qn2.to(torch.float32)[:, None] - 2.0 * (qf @ xf.T)
-                + xn2.to(torch.float32)[None, :])
+        out, scale = (acc + qn2[:, None]) + xn2[None, :], 2.0
     elif metric == "ip":
-        part = -(qf @ xf.T)
+        out, scale = acc, 1.0
     else:
         raise ValueError(metric)
-    out = acc.to(torch.float32) + part
+    for k0 in range(0, x.shape[1], tile_k):
+        out = out - scale * (q[:, k0:k0 + tile_k] @ x[:, k0:k0 + tile_k].T)
     out = torch.where(torch.isfinite(acc), out, torch.inf)
     if prune:
-        out = torch.where(out > tau.to(torch.float32)[:, None], torch.inf, out)
+        out = torch.where(out > tau[:, None], torch.inf, out)
     return out
 
 

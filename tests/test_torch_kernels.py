@@ -131,6 +131,30 @@ def test_distance_plain_matches_reference_and_pallas(m, n, d, metric, prune):
     np.testing.assert_array_equal(skip.numpy(), np.asarray(p_skip))
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("tile_k", [32, 64])
+def test_distance_plain_folds_per_tile_k_chunk_like_pallas(metric, tile_k):
+    """Db = 96 in chunks of 32 (three) or 64 (two, the second ragged): the
+    plain version subtracts scale·dot once per chunk, as the TPU kernel
+    does, and meets Pallas interpret mode at the fp32 rule."""
+    arrs = _mk(130, 257, 96, seed=5, dead_tile=slice(0, 64))
+    got, skip = ops.partial_distance_update(
+        *_t(*arrs), metric=metric, tile_m=64, tile_n=64, tile_k=tile_k)
+    p_out, p_skip = pallas_distance(
+        *map(jnp.asarray, arrs), metric=metric, interpret=True,
+        tile_m=64, tile_n=64, tile_k=tile_k)
+    assert_distance_close(got.numpy(), p_out, arrs[5])
+    np.testing.assert_array_equal(skip.numpy(), np.asarray(p_skip))
+    x, xn2, q, qn2, acc, tau = _t(*arrs)
+    out = (acc + qn2[:, None]) + xn2[None, :] if metric == "l2" else acc
+    for k0 in range(0, 96, tile_k):
+        dot = q[:, k0:k0 + tile_k] @ x[:, k0:k0 + tile_k].T
+        out = out - (2.0 if metric == "l2" else 1.0) * dot
+    out = torch.where(torch.isfinite(acc), out, torch.inf)
+    out = torch.where(out > tau[:, None], torch.inf, out)
+    assert torch.equal(got, out)
+
+
 @pytest.mark.parametrize("m,n,tm,tn", [(8, 16, 128, 128), (130, 257, 64, 32),
                                        (64, 256, 128, 128), (5, 300, 4, 100)])
 def test_tile_skip_map_matches_reference(m, n, tm, tn):
@@ -375,21 +399,53 @@ def test_kernel_modules_import_without_building():
     assert "LAZY_OK" in proc.stdout
 
 
+def _one_subtile_alive(acc):
+    """acc [128, 384] on 128 x 128 tiles: tile 0 alive only at (100, 90),
+    in sub-tile (6, 2) of the kernels' 16 x 32 grid; tile 1 only at
+    (3, 130), in its sub-tile (0, 0); tile 2 dead. Skip map [[0, 0, 1]]."""
+    acc[:] = np.inf
+    acc[100, 90] = 1.0
+    acc[3, 130] = 2.0
+    return acc
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
-    for m, n, d in [(4, 256, 32), (64, 256, 64), (128, 256, 128), (130, 257, 96)]:
+    # (m, n, d, tile_m, tile_n, tile_k): the ring's shapes, tiles that are
+    # not multiples of the 16 x 32 sub-tile, chunked and unaligned Db
+    fp32_cases = [(4, 256, 32, 128, 128, 128), (64, 256, 64, 128, 128, 128),
+                  (128, 256, 128, 128, 128, 128), (130, 257, 96, 128, 128, 128),
+                  (130, 257, 96, 32, 64, 32), (130, 257, 96, 4, 100, 64),
+                  (64, 256, 30, 4, 100, 128)]
+    for m, n, d, tm, tn, tk in fp32_cases:
         for metric in ("l2", "ip"):
             arrs = [a.to(dev) for a in _t(*_mk(m, n, d, seed=m + d,
                                                dead_tile=slice(128, 256)))]
-            got, skip = distance.partial_distance_update(*arrs, metric=metric)
-            want = ref.partial_distance_update_ref(*arrs, metric=metric)
+            got, skip = distance.partial_distance_update(
+                *arrs, metric=metric, tile_m=tm, tile_n=tn, tile_k=tk)
+            want = ref.partial_distance_update_ref(*arrs, metric=metric, tile_k=tk)
             assert_distance_close(got.cpu().numpy(), want.cpu().numpy(),
                                   arrs[5].cpu().numpy())
-            assert torch.equal(skip, ops._tile_skip_map(arrs[4], 128, 128))
-    for m, n, d, tm, tn, tk, extreme, dead, tight in INT8_CASES:
+            assert torch.equal(skip, ops._tile_skip_map(arrs[4], tm, tn))
+    x, xn2, q, qn2, acc, tau = _mk(128, 384, 128, seed=11)
+    arrs = [a.to(dev) for a in _t(x, xn2, q, qn2, _one_subtile_alive(acc),
+                                  np.full_like(tau, 1e30))]
+    got, skip = distance.partial_distance_update(*arrs)
+    assert skip.tolist() == [[0, 0, 1]]
+    assert torch.isfinite(got).nonzero().tolist() == [[3, 130], [100, 90]]
+    assert_distance_close(got.cpu().numpy(),
+                          ref.partial_distance_update_ref(*arrs).cpu().numpy(),
+                          arrs[5].cpu().numpy())
+    int8_cases = INT8_CASES + [
+        # (m, n, d, tile_m, tile_n, tile_k, extreme, dead tile, tight row)
+        (130, 257, 70, 4, 100, 32, False, slice(0, 128), 3),   # unaligned Db
+        (130, 257, 64, 32, 64, 64, False, None, None),
+        (64, 256, 64, 128, 128, 24, False, None, None),        # unaligned chunks
+    ]
+    for m, n, d, tm, tn, tk, extreme, dead, tight in int8_cases:
         x, xn2, q, qn2, s2, acc, tau = _mk_int8(m, n, d, seed=d, dead_tile=dead,
                                                 extreme=extreme, tight=tight)
         args = [a.to(dev) for a in (*_t(x, xn2, q, qn2), torch.tensor(s2),
@@ -399,6 +455,13 @@ def test_cuda_kernels_match_plain_versions():
         want = ref.int8_partial_distance_update_ref(*args, tile_k=tk)
         assert torch.equal(got, want)
         assert torch.equal(skip, ops._tile_skip_map(args[5], tm, tn))
+    x, xn2, q, qn2, s2, acc, tau = _mk_int8(128, 384, 128, seed=12)
+    args = [a.to(dev) for a in (*_t(x, xn2, q, qn2), torch.tensor(s2),
+                                *_t(_one_subtile_alive(acc), np.full_like(tau, np.inf)))]
+    got, skip = distance_int8.int8_partial_distance_update(*args)
+    assert skip.tolist() == [[0, 0, 1]]
+    assert torch.isfinite(got).nonzero().tolist() == [[3, 130], [100, 90]]
+    assert torch.equal(got, ref.int8_partial_distance_update_ref(*args))
     for m, c, k in [(4, 256, 10), (64, 256, 40), (3, 4096, 64)]:
         for ties in (False, True):
             arrs = [a.to(dev) for a in _t(*_mk_topk(m, c, k, seed=c, ties=ties))]
