@@ -14,10 +14,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    the int8 distance and the top-K bit for bit, identical skip maps),
    and at the distance kernels' awkward geometries: logical tiles that
    are not multiples of their 16 x 32 sub-tiles, chunked and unaligned
-   contractions, a tile alive in one sub-tile only. Then time kernel,
-   plain version, a PyTorch library yardstick and the bytes/operations
-   bound at the main path's shapes (CUDA events), with each distance
-   kernel's grid size (``ctas``) and its time when no tile is dead.
+   contractions, a tile alive in one sub-tile only; the top-K kernel
+   also at inputs aimed at its branches (``mk_topk_branch``), M in
+   {1, 130}, K in {1, 64}, C up to 4096, with full and broadcast ids.
+   Then time kernel, plain version, a PyTorch library yardstick and the
+   bytes/operations bound at the main path's shapes (CUDA events), with
+   each kernel's grid size (``ctas``) and each distance kernel's time
+   when no tile is dead.
 3. Serving, fp32: build a SIFT1M-shaped IVF index on the card (1M × 128
    fp32 rows, nlist 1024, nprobe 16, top-10) and serve batches of
    1, 8, 32, 128 and 160 queries through ``SpmdExecutor.search_batch`` on
@@ -31,6 +34,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    ``check_int8``), recall@10 against the fp32 oracle must be ≥ 0.98, and
    the int8 and top-K kernels must launch while the fp32 distance kernel
    and every plain version stay at 0.
+
+After each tier and mesh, one more 128-query batch is served with the
+ring's top-K call wrapped (``survivor_split``): how many candidates per
+(row, launch) lie below the row's K-th score. The profile lines give the
+top-K kernel's device ms and launches. Then the top-K kernel is timed
+on inputs that follow each measured split (``time_topk_path_shaped``).
+
 5. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -250,8 +260,72 @@ def check_kernels(dev):
                     float((gs - ws)[torch.isfinite(ws)].abs().max().item())
                     if torch.isfinite(ws).any() else 0.0)
                 n_checked += 1
+    # the redesigned kernel's branches: rows with no survivor, one survivor,
+    # candidates equal to run entries, an empty or half-empty run under an
+    # all-finite chunk, ties across 256-column windows; K = C is the shape of
+    # merge_topk(fused=True)
+    branch_shapes = [(1, 256, 10), (130, 256, 40), (130, 256, 1), (130, 256, 64),
+                     (130, 1, 1), (130, 10, 10), (130, 40, 40), (130, 257, 64),
+                     (64, 4096, 40), (3, 4096, 64)]
+    for m, c, k in branch_shapes:
+        for kind in TOPK_KINDS:
+            a = [t(v) for v in mk_topk_branch(rng, m, c, k, kind)]
+            for ids in (a[1], a[1][0].expand(m, c)):
+                gs, gi = topk_update.running_topk_update(a[0], ids, a[2], a[3], k=k)
+                ws, wi = ref.running_topk_ref(a[0], ids, a[2], a[3], k=k)
+                torch.cuda.synchronize()
+                assert torch.equal(gs, ws) and torch.equal(gi, wi), \
+                    f"running_topk differs at {(m, c, k, kind)}, ids stride {ids.stride(0)}"
+            n_checked += 1
     log(phase="kernels_checked", cases=n_checked, max_abs_err=errs)
     return errs, n_checked
+
+
+TOPK_KINDS = ("path", "run_entries", "run_inf", "run_part", "windows")
+
+
+def mk_topk_branch(rng, m, c, k, kind):
+    """(scores, ids, run_s, run_i) as numpy arrays aimed at one branch of
+    the top-K kernel. ``path``: rows in turn all +inf, one survivor below
+    run_s[K-1], a few survivors beside entries equal to run_s[K-1], and only
+    such equal entries (none enters). ``run_entries``: candidates copied
+    from the row's run entries, the last one included, with +inf holes.
+    ``run_inf`` / ``run_part``: a run all +inf or +inf from K/2 on, under an
+    all-finite chunk. ``windows``: 300 distinct integer scores over the row,
+    so equal scores fall in different 256-column windows."""
+    import numpy as np
+
+    run_s = np.sort(np.round(rng.uniform(1, 100, size=(m, k))), axis=1).astype(np.float32)
+    run_i = rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32)
+    ids = rng.integers(0, 10_000, size=(m, c)).astype(np.int32)
+    thr = run_s[:, -1:]
+    if kind == "path":
+        s = np.full((m, c), np.inf, np.float32)
+        below = (thr * rng.uniform(0, 0.999, size=(m, c))).astype(np.float32)
+        pick = rng.random((m, c))
+        one = np.arange(m) % 4 == 1
+        s[one, rng.integers(0, c, size=int(one.sum()))] = below[one, 0]
+        few = np.arange(m) % 4 == 2
+        s[few] = np.where(pick[few] < 3 / c, below[few], s[few])
+        eq = np.arange(m) % 4 >= 2
+        s[eq] = np.where((pick[eq] > 0.9) & ~np.isfinite(s[eq]),
+                         np.broadcast_to(thr, (m, c))[eq], s[eq])
+    elif kind == "run_entries":
+        run_s = np.sort(np.round(run_s / 10), axis=1).astype(np.float32)
+        s = np.take_along_axis(run_s, rng.integers(0, k, size=(m, c)), axis=1)
+        s[:, ::7] = run_s[:, -1:]
+        s[rng.random((m, c)) < 0.2] = np.inf
+    elif kind in ("run_inf", "run_part"):
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        half = 0 if kind == "run_inf" else (k + 1) // 2
+        run_s[:, half:] = np.inf
+        run_i[:, half:] = -1
+    elif kind == "windows":
+        s = rng.integers(0, 300, size=(m, c)).astype(np.float32)
+        run_s = np.sort(rng.integers(0, 300, size=(m, k)), axis=1).astype(np.float32)
+    else:
+        raise ValueError(kind)
+    return s.astype(np.float32), ids, run_s, run_i
 
 
 def time_ms(fn, reps=100):
@@ -285,7 +359,7 @@ def time_kernels(dev, smi):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import distance, distance_int8, ops, ref, topk_update
+    from repro_torch.kernels import distance, distance_int8, ops, ref
 
     rng = np.random.default_rng(1)
 
@@ -366,24 +440,107 @@ def time_kernels(dev, smi):
         c = 256
         s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
         s[rng.random((m, c)) < 0.2] = np.inf
-        ids_row = t(rng.integers(0, 10_000, size=(c,)).astype(np.int32)).expand(m, c)
-        run_s = t(np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32))
-        run_i = t(rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32))
-        s = t(s)
-        cat = torch.cat([run_s, s], dim=1)
-        (ms, call), (plain, plain_call), (lib, lib_call) = (
-            time_ms(lambda: topk_update.running_topk_update(s, ids_row, run_s, run_i, k=k)),
-            time_ms(lambda: ref.running_topk_ref(s, ids_row, run_s, run_i, k=k)),
-            time_ms(lambda: torch.topk(cat, k, dim=1, largest=False)))
-        nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
-        b, by = bound_ms(nbytes, m * k * c)
-        row = dict(kernel="running_topk_update", shape=label, M=m, C=c, K=k,
-                   kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                   bound_by=by, kernel_call_ms=call, plain_call_ms=plain_call,
-                   library_call_ms=lib_call, card=smi)
-        log(**row)
+        run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
+        row = time_topk(rng, dev, s, run_s, label, smi)
         timed.setdefault("running_topk_update", row)
     return timed
+
+
+def time_topk(rng, dev, s, run_s, label, smi, **extra):
+    """Time the top-K kernel, its plain version and ``torch.topk`` of the
+    [M, K+C] concatenation on scores ``s`` [M, C] and the ascending list
+    ``run_s`` [M, K] (numpy), with one broadcast ids row as the ring
+    passes it; check the kernel against the plain version there first."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref, topk_update
+
+    (m, c), k = s.shape, run_s.shape[1]
+    s, run_s = (torch.from_numpy(v).to(dev) for v in (s, run_s))
+    ids_row = torch.from_numpy(rng.integers(0, 10_000, size=(c,)).astype(np.int32)
+                               ).to(dev).expand(m, c)
+    run_i = torch.from_numpy(rng.integers(10_000, 20_000, size=(m, k)).astype(np.int32)
+                             ).to(dev)
+    gs, gi = topk_update.running_topk_update(s, ids_row, run_s, run_i, k=k)
+    ws, wi = ref.running_topk_ref(s, ids_row, run_s, run_i, k=k)
+    assert torch.equal(gs, ws) and torch.equal(gi, wi), f"running_topk differs at {label}"
+    cat = torch.cat([run_s, s], dim=1)
+    (ms, call), (plain, plain_call), (lib, lib_call) = (
+        time_ms(lambda: topk_update.running_topk_update(s, ids_row, run_s, run_i, k=k)),
+        time_ms(lambda: ref.running_topk_ref(s, ids_row, run_s, run_i, k=k)),
+        time_ms(lambda: torch.topk(cat, k, dim=1, largest=False)))
+    nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
+    b, by = bound_ms(nbytes, m * k * c)
+    row = dict(kernel="running_topk_update", shape=label, M=m, C=c, K=k, ctas=m, **extra,
+               kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+               kernel_call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
+               card=smi)
+    log(**row)
+    return row
+
+
+def survivor_split(ex, queries, k):
+    """Serve ``queries`` once with the ring's top-K call wrapped here, and
+    count over its (row, launch) pairs how many candidates lie below the
+    row's run_s[K-1]: the survivors the kernel merges (it drops the rest
+    after one vote). Returns the split and the histogram of the counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, topk_update
+
+    hist = torch.zeros(topk_update.MAX_C + 1, dtype=torch.int64, device=ex.device)
+    thr_inf = torch.zeros((), dtype=torch.int64, device=ex.device)
+    wrapped = ops.running_topk_update
+
+    def counting(scores, ids, run_s, run_i, **kw):
+        n = (scores < run_s[:, -1:]).sum(1)
+        hist.add_(torch.bincount(n, minlength=hist.numel()))
+        thr_inf.add_(torch.isinf(run_s[:, -1]).sum())
+        return wrapped(scores, ids, run_s, run_i, **kw)
+
+    ops.running_topk_update = counting
+    try:
+        ex.search_batch(queries)
+    finally:
+        ops.running_topk_update = wrapped
+    h = hist.cpu().numpy()
+    n = np.arange(h.size)
+    lo = min(32, k)
+    bins = {"0": int(h[0]), f"1-{lo}": int(h[1:lo + 1].sum())}
+    if k > lo:
+        bins[f"{lo + 1}-{k}"] = int(h[lo + 1:k + 1].sum())
+    bins[f">{k}"] = int(h[k + 1:].sum())
+    pairs = int(h.sum())
+    split = dict(pairs=pairs, bins=bins, share={b: v / pairs for b, v in bins.items()},
+                 mean_survivors=float((n * h).sum() / pairs),
+                 max_survivors=int(n[h > 0].max()),
+                 share_run_not_full=int(thr_inf.item()) / pairs)
+    return split, h
+
+
+def time_topk_path_shaped(dev, smi, splits):
+    """Time the top-K kernel on inputs that follow the survivor split the
+    serving path measured (``survivor_split``) for each (tier, mesh): each
+    row draws its survivor count from that histogram and puts as many
+    scores below its (finite) run_s[K-1] at random columns, +inf elsewhere.
+    Same bound and ``torch.topk`` yardstick as the 20 %-+inf rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(2)
+    c = 256
+    for (tier, mesh, m, k), hist in splits.items():
+        counts = rng.choice(hist.size, size=m, p=hist / hist.sum())
+        run_s = np.sort(rng.uniform(0, 100, size=(m, k)), axis=1).astype(np.float32)
+        s = np.full((m, c), np.inf, np.float32)
+        for r, n in enumerate(counts):
+            cols = rng.choice(c, size=n, replace=False)
+            s[r, cols] = run_s[r, -1] * rng.uniform(0, 0.999, size=n)
+        time_topk(rng, dev, s, run_s, f"mesh{mesh}_qb128_{tier}_path", smi,
+                  input="path-shaped",
+                  survivors_drawn={int(n): int(r) for n, r in
+                                   zip(*np.unique(counts, return_counts=True))})
 
 
 def main() -> int:
@@ -425,6 +582,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ds = make_dataset(nb=nb, dim=128, n_components=ncomp, spread=0.6, seed=0)
     sizes = (1, 8, 32, 128, 160)
+    lo128 = sum(sizes[:3])                # where the 128-query batch starts
     q_all = make_queries(ds, nq=sum(sizes), skew=0.3, seed=1)
     t_data = time.perf_counter() - t0
     cfg = HarmonyConfig(dim=128, nlist=nlist, nprobe=16, topk=10)
@@ -453,15 +611,20 @@ def main() -> int:
 
     def profile_128(ex, mesh, walls, precision):
         """Where the time of one 128-query batch goes: device busy share."""
-        lo128 = sum(sizes[:3])
+        before = ops.launch_counts()["running_topk_update"]
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             res = ex.search_batch(q_all[lo128:lo128 + 128])
+        topk_launches = ops.launch_counts()["running_topk_update"] - before
         busy_us = {}      # device kernels only (an aten op repeats its kernels' time)
+        topk_us, topk_events = 0.0, 0
         for ev in prof.key_averages():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 busy_us[ev.key[:60]] = ev.self_device_time_total
+                if "topk_update_kernel" in ev.key:
+                    topk_us += ev.self_device_time_total
+                    topk_events += ev.count
         wall_us = walls[128]             # the same batch, unprofiled
         top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]
         log(phase="profile", mesh=f"{mesh[0]}x{mesh[1]}", precision=precision,
@@ -469,10 +632,15 @@ def main() -> int:
             device_busy_ms=sum(busy_us.values()) / 1e3,
             device_idle_share=(1 - sum(busy_us.values()) / wall_us
                                if busy_us else "not measured"),
+            topk_kernel_ms=topk_us / 1e3, topk_launches=topk_launches,
+            topk_kernel_events=topk_events,
+            topk_ms_per_launch=(topk_us / 1e3 / topk_events if topk_events
+                                else "not measured"),
             top_device_us=dict(top))
 
     served = {"partial_distance_update": 0, "int8_partial_distance_update": 0,
               "running_topk_update": 0}
+    splits = {}               # (tier, mesh, M, K) → survivor histogram
     for mesh in ((1, 1), (2, 2)):
         mb_before = torch.cuda.memory_allocated() / 2 ** 20
         ex = SpmdExecutor(index, ExecutorConfig(d_blocks=mesh[1]), mesh=mesh)
@@ -506,6 +674,10 @@ def main() -> int:
         for k in served:
             served[k] += counts[k]
         profile_128(ex, mesh, walls, "fp32")
+        split, hist = survivor_split(ex, q_all[lo128:lo128 + 128], 10)
+        splits[("fp32", f"{mesh[0]}x{mesh[1]}", 128 // mesh[1], 10)] = hist
+        log(phase="topk_survivors", mesh=f"{mesh[0]}x{mesh[1]}", precision="fp32",
+            nq=128, K=10, **split)
         del ex
         torch.cuda.empty_cache()
 
@@ -609,8 +781,14 @@ def main() -> int:
             recall_at_10_vs_truth=recall_at_k(ids, true_idx),
             rows_vs_two_stage=settled, summary=ex.stats_summary())
         profile_128(ex, mesh, walls, "int8")
+        split, hist = survivor_split(ex, q_all[lo128:lo128 + 128], 40)
+        splits[("int8", f"{mesh[0]}x{mesh[1]}", 128 // B, 40)] = hist
+        log(phase="topk_survivors", mesh=f"{mesh[0]}x{mesh[1]}", precision="int8",
+            nq=128, K=40, **split)
         del ex
         torch.cuda.empty_cache()
+
+    time_topk_path_shaped(dev, smi, splits)
 
     # ---------------------------------------------------------- 5. report
     sources = {

@@ -17,9 +17,8 @@ from repro_torch.kernels import _build
 
 MAX_K = 64
 MAX_C = 4096
-_SMEM_BUDGET = 48 * 1024      # static-launch limit, no opt-in attribute
 _SIG = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _lib():
@@ -54,7 +53,8 @@ def running_topk_update(
     """Merge a candidate chunk into the per-query running top-K.
 
     ``tile_m`` is accepted for signature parity; the kernel runs one warp
-    per query row. ``ids`` may be an expanded row (``id_c.expand(M, C)``).
+    per query row and one warp per CTA (M CTAs). ``ids`` may be an
+    expanded row (``id_c.expand(M, C)``).
     """
     m, c = scores.shape
     if k != run_s.shape[1]:
@@ -80,14 +80,13 @@ def running_topk_update(
     out_i = torch.empty((m, k), dtype=torch.int32, device=scores.device)
     if m == 0:
         return out_s, out_i
-    warps = max(1, min(8, _SMEM_BUDGET // (4 * c)))
     lib = _lib()
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         err = lib.running_topk_update_f32(
             scores.data_ptr(), ids.data_ptr(), ids.stride(0), run_s.data_ptr(),
             run_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), m, c, k,
-            warps, stream,
+            stream,
         )
     if err:
         raise RuntimeError("running_topk_update launch failed: "

@@ -280,12 +280,21 @@ def test_int8_accumulation_reconstructs_quantized_distance():
     np.testing.assert_allclose(acc.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
-def _mk_topk(m, c, k, seed=0, frac_invalid=0.2, run_filled=True, ties=False):
+def _mk_topk(m, c, k, seed=0, frac_invalid=0.2, run_filled=True, ties=False,
+             kind="uniform"):
+    """Candidates and a running list. ``kind`` shapes the candidates after
+    what the CUDA kernel branches on: ``uniform``; ``path``, the ring's
+    chunks, where most rows are all +inf and the rest hold one to three
+    candidates below run_s[K-1] beside entries equal to it; ``run_last``,
+    candidates copied from the row's run entries, its last one included;
+    ``finite_chunk``, no +inf candidate, under a run that is +inf from K/2
+    on (``run_filled``) or all +inf (not ``run_filled``)."""
     rng = np.random.default_rng(seed)
     scores = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
     if ties:
         scores = np.round(scores / 10).astype(np.float32)   # many exact ties
-    scores[rng.random((m, c)) < frac_invalid] = np.inf
+    if kind != "finite_chunk":
+        scores[rng.random((m, c)) < frac_invalid] = np.inf
     ids = rng.integers(0, 10_000, size=(m, c)).astype(np.int32)
     if run_filled:
         run_s = np.sort(rng.uniform(0, 100, size=(m, k)).astype(np.float32), axis=1)
@@ -295,15 +304,39 @@ def _mk_topk(m, c, k, seed=0, frac_invalid=0.2, run_filled=True, ties=False):
     else:
         run_s = np.full((m, k), np.inf, np.float32)
         run_i = np.full((m, k), -1, np.int32)
-    return scores, ids, run_s, run_i
+    if kind == "path":
+        last = run_s[:, -1:]
+        live = (rng.random((m, 1)) < 0.25) & (rng.random((m, c)) < 3 / c)
+        scores = np.where(live, scores * 0.01 * np.where(np.isfinite(last), last, 1.0),
+                          np.inf).astype(np.float32)
+        scores[:, ::5] = np.where(rng.random((m, 1)) < 0.25, last, scores[:, ::5])
+    elif kind == "run_last":
+        scores = np.where(np.isfinite(scores), np.take_along_axis(
+            run_s, rng.integers(0, k, size=(m, c)), axis=1), np.inf)
+        scores[:, ::3] = run_s[:, -1:]
+    elif kind == "finite_chunk" and run_filled:
+        run_s[:, k // 2:] = np.inf
+        run_i[:, k // 2:] = -1
+    return scores.astype(np.float32), ids, run_s, run_i
 
 
-@pytest.mark.parametrize("m,c,k", [(1, 8, 4), (8, 64, 10), (13, 100, 5),
-                                   (4, 16, 16), (64, 256, 10), (4, 256, 40)])
+# (m, c, k, kind): the uniform sweep, then the kernel's branches (rows
+# without a survivor, candidates equal to run entries, an empty or
+# half-empty run under an all-finite chunk) and C == K, the shape of
+# merge_topk(fused=True)
+TOPK_CASES = [(1, 8, 4, "uniform"), (8, 64, 10, "uniform"), (13, 100, 5, "uniform"),
+              (4, 16, 16, "uniform"), (64, 256, 10, "uniform"), (4, 256, 40, "uniform"),
+              (16, 256, 10, "path"), (8, 64, 40, "run_last"), (4, 256, 40, "finite_chunk"),
+              (8, 64, 10, "finite_chunk"), (10, 10, 10, "uniform"), (4, 40, 40, "uniform")]
+
+
+@pytest.mark.parametrize("m,c,k,kind", [
+    pytest.param(*case, id="-".join(map(str, case[:3] if case[3] == "uniform" else case)))
+    for case in TOPK_CASES])
 @pytest.mark.parametrize("run_filled", [True, False])
 @pytest.mark.parametrize("ties", [False, True])
-def test_topk_plain_matches_reference_and_pallas(m, c, k, run_filled, ties):
-    arrs = _mk_topk(m, c, k, seed=m * c + k, run_filled=run_filled, ties=ties)
+def test_topk_plain_matches_reference_and_pallas(m, c, k, kind, run_filled, ties):
+    arrs = _mk_topk(m, c, k, seed=m * c + k, run_filled=run_filled, ties=ties, kind=kind)
     gs, gi = ops.running_topk_update(*_t(*arrs), k=k)
     assert gs.dtype == torch.float32 and gi.dtype == torch.int32
     ws, wi = r_ref.running_topk_ref(*map(jnp.asarray, arrs), k)
@@ -468,3 +501,18 @@ def test_cuda_kernels_match_plain_versions():
             gs, gi = topk_update.running_topk_update(*arrs, k=k)
             ws, wi = ref.running_topk_ref(*arrs, k=k)
             assert torch.equal(gs, ws) and torch.equal(gi, wi)
+    # the top-K kernel's branches, as chip_smoke.py checks them: M in
+    # {1, 130}, K in {1, 64}, C in {1, 10, 40, 257, 4096} (K = C for
+    # merge_topk's shape), with the full and the broadcast ids
+    branch = [(1, 256, 10), (130, 256, 1), (130, 256, 64), (130, 1, 1), (130, 10, 10),
+              (130, 40, 40), (130, 257, 64), (64, 4096, 40)]
+    for m, c, k in branch:
+        for kind in ("uniform", "path", "run_last", "finite_chunk"):
+            for run_filled in (True, False):
+                s, ids, rs, ri = _t(*_mk_topk(m, c, k, seed=m + c + k, kind=kind,
+                                              run_filled=run_filled, ties=kind == "uniform"))
+                s, ids, rs, ri = (a.to(dev) for a in (s, ids, rs, ri))
+                for ids_form in (ids, ids[0].expand(m, c)):
+                    gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
+                    ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
+                    assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
