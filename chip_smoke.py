@@ -41,7 +41,20 @@ ring's top-K call wrapped (``survivor_split``): how many candidates per
 top-K kernel's device ms and launches. Then the top-K kernel is timed
 on inputs that follow each measured split (``time_topk_path_shaped``).
 
-5. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+5. Serving through the entry point (``serve_engine``): the same index as
+   segment 0 of a ``SegmentedIndex`` behind ``HarmonyServer(n_nodes=4,
+   backend="spmd")``. A write burst (fresh ids, overwrites, deletes), the
+   batches above; a delta-only seal, a second burst, the batches again
+   (three parts per merge). Every batch must equal an oracle built without
+   the ring or the merge kernel (``engine_oracle``), hold no deleted id,
+   and launch the top-K kernel exactly once per part beyond the ring's
+   launches (``RingTopkLaunches``). Then an int8 server on the same data
+   at k = 10 and k = 20 (K' = 80: exact fp32 scores, live distinct ids,
+   recall ≥ 0.98 against the fp32 server), the host backend (equal to the
+   spmd batch, no kernel launched) and an int64 id (first at distance 0,
+   its merge on the host). The top-K kernel is timed at the merge's
+   shapes and at K = 80, 256 (``time_merge_shapes``).
+6. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -267,6 +280,11 @@ def check_kernels(dev):
     branch_shapes = [(1, 256, 10), (130, 256, 40), (130, 256, 1), (130, 256, 64),
                      (130, 1, 1), (130, 10, 10), (130, 40, 40), (130, 257, 64),
                      (64, 4096, 40), (3, 4096, 64)]
+    # K above 64 (4 and 8 list entries a lane; K' = 80 is the int8 tier at
+    # k = 20), and the served merge's shapes: M = nq, C = K = k
+    branch_shapes += [(m, c, k) for k in (80, 128, 256) for c in (80, 256, 4096)
+                      for m in ((130, 3) if c == 4096 else (130,))]
+    branch_shapes += [(m, k, k) for m in (1, 8, 32, 128, 160) for k in (10, 20)]
     for m, c, k in branch_shapes:
         for kind in TOPK_KINDS:
             a = [t(v) for v in mk_topk_branch(rng, m, c, k, kind)]
@@ -543,6 +561,286 @@ def time_topk_path_shaped(dev, smi, splits):
                                    zip(*np.unique(counts, return_counts=True))})
 
 
+def assert_topk_matches(scores, ids, want_s, want_i, what):
+    """The ROADMAP tolerance: the same +inf pattern, scores at rtol = atol =
+    1e-3, ids equal except across exact ties (a row whose ids differ must
+    hold the same sorted scores)."""
+    import numpy as np
+
+    finite = np.isfinite(want_s)
+    assert scores.shape == want_s.shape and ids.dtype == np.int64, what
+    assert np.array_equal(np.isfinite(scores), finite), f"{what}: valid pattern differs"
+    np.testing.assert_allclose(scores[finite], want_s[finite], rtol=1e-3, atol=1e-3,
+                               err_msg=what)
+    diff = (ids != want_i) & finite
+    for r in np.unique(np.nonzero(diff)[0]):
+        assert np.allclose(np.sort(scores[r]), np.sort(want_s[r]), rtol=1e-3, atol=1e-3), (
+            f"{what}: row {r} ids {ids[r]} vs {want_i[r]} beyond a tie")
+
+
+class RingTopkLaunches:
+    """Counts the top-K kernel launches made inside
+    ``SpmdExecutor.search_batch`` (the ring's), so that a served batch's
+    launches split into the ring's and the merge's. A batch the executor
+    splits counts once, at its outer call."""
+
+    def __init__(self):
+        from repro_torch.serve.executor import SpmdExecutor
+
+        self.cls, self.orig = SpmdExecutor, SpmdExecutor.search_batch
+        self.depth = self.ring = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        def wrapped(ex, *a, **kw):
+            if self.depth:
+                return self.orig(ex, *a, **kw)
+            self.depth += 1
+            before = ops.launch_counts()["running_topk_update"]
+            try:
+                return self.orig(ex, *a, **kw)
+            finally:
+                self.depth -= 1
+                self.ring += ops.launch_counts()["running_topk_update"] - before
+
+        self.cls.search_batch = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.search_batch = self.orig
+
+
+def engine_oracle(dev, snap, q, k):
+    """The served batch's answer, built without the ring or the merge
+    kernel: per sealed segment ``search_oracle`` with its tombstones, an
+    exact float64 top-k over the live delta rows on the card, merged by a
+    stable sort (parts in snapshot order, the delta last)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import search_oracle
+
+    nq = q.shape[0]
+    parts_s, parts_i = [], []
+    for seg in snap.segments:
+        o = search_oracle(seg.index, q, k=k, dead_rows=snap.dead_rows[seg.seg_id])
+        parts_s.append(o.scores.astype(np.float64))
+        parts_i.append(o.ids)
+    live = np.nonzero(snap.delta_live)[0]
+    if live.size:
+        xd = torch.as_tensor(snap.delta_x[live]).to(dev).double()
+        qd = torch.as_tensor(q).to(dev).double()
+        d = (qd * qd).sum(1)[:, None] - 2.0 * (qd @ xd.T) + (xd * xd).sum(1)[None, :]
+        sd, pos = torch.sort(d, dim=1, stable=True)
+        kk = min(k, live.size)
+        ds_ = np.full((nq, k), np.inf)
+        di = np.full((nq, k), -1, np.int64)
+        ds_[:, :kk] = sd[:, :kk].cpu().numpy()
+        di[:, :kk] = snap.delta_ids[live][pos[:, :kk].cpu().numpy()]
+        parts_s.append(ds_)
+        parts_i.append(di)
+    cat_s, cat_i = np.concatenate(parts_s, 1), np.concatenate(parts_i, 1)
+    order = np.argsort(cat_s, axis=1, kind="stable")[:, :k]
+    want_s = np.take_along_axis(cat_s, order, axis=1).astype(np.float32)
+    want_i = np.take_along_axis(cat_i, order, axis=1)
+    want_i[~np.isfinite(want_s)] = -1
+    return want_s, want_i
+
+
+def time_merge_shapes(dev, smi):
+    """The top-K kernel at the served merge's shapes (M = nq, C = K = k):
+    the first part, which meets an all-+inf list, and a later one, which
+    meets a full list; each part's scores ascending, as a top-k is. Then
+    K = 80 and 256 at the ring's C = 256."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    rows = []
+    for m, k in ((128, 10), (160, 10), (128, 20)):
+        s = np.sort(rng.uniform(0, 100, size=(m, k)), axis=1).astype(np.float32)
+        later = np.sort(rng.uniform(0, 100, size=(m, k)), axis=1).astype(np.float32)
+        for part, run_s in (("first", np.full((m, k), np.inf, np.float32)), ("later", later)):
+            rows.append(time_topk(rng, dev, s, run_s, f"merge_{part}_M{m}_K{k}", smi,
+                                  caller="merge_topk(fused=True)"))
+    for k in (80, 256):
+        m, c = 128, 256
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
+        rows.append(time_topk(rng, dev, s, run_s, f"ring_M{m}_K{k}", smi))
+    return rows
+
+
+def serve_engine(dev, smi, index, ds, q_all, sizes):
+    """Phase 5: ``HarmonyServer`` over the mutable segmented data plane
+    (the SIFT1M-shaped index as segment 0). Returns the kernel launches of
+    its path (counts set to 0 just before it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SegmentedIndex
+    from repro_torch.data import make_dataset, recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ExecutorConfig, HarmonyServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(4)
+    nb = index.nb
+    fresh = make_dataset(nb=7_000, dim=128, n_components=256, spread=0.6, seed=2).x
+    data = SegmentedIndex.from_static(index)
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig())
+    log(phase="serve_engine_setup", seconds=time.perf_counter() - t_phase,
+        plan=[srv.plan.v_shards, srv.plan.d_blocks])
+
+    def near(rows, noise):
+        return (ds.x[rows] + noise * rng.standard_normal((len(rows), 128))).astype(np.float32)
+
+    deleted = set()
+
+    def burst(tag, fresh_ids, fresh_x, overwrite_ids, overwrite_x, delete_ids):
+        t0 = time.perf_counter()
+        srv.upsert(fresh_ids, fresh_x)
+        srv.upsert(overwrite_ids, overwrite_x)
+        removed = srv.delete(delete_ids)
+        deleted.difference_update(np.concatenate([fresh_ids, overwrite_ids]).tolist())
+        deleted.update(np.asarray(delete_ids).tolist())
+        log(phase="serve_engine_writes", burst=tag, upserts=len(fresh_ids) + len(overwrite_ids),
+            deletes=len(delete_ids), deleted_live=removed, seconds=time.perf_counter() - t0,
+            segments=data.n_segments, delta_live=data.delta_len, nb_live=data.nb_live)
+
+    def serve_batches(tag, n_parts):
+        lo = 0
+        for n in sizes:
+            q = q_all[lo:lo + n]
+            exec_wall = sum(st.executor.wall_s for st in srv._seg_states.values()
+                            if st.executor is not None)
+            before = ops.launch_counts()
+            with RingTopkLaunches() as ring:
+                res = srv.search_batch(q)
+            after = ops.launch_counts()
+            exec_wall = sum(st.executor.wall_s for st in srv._seg_states.values()
+                            if st.executor is not None) - exec_wall
+            launches = {k: after[k] - before[k] for k in after}
+            merge = launches["running_topk_update"] - ring.ring
+            want_s, want_i = engine_oracle(dev, data.snapshot(), q, 10)
+            assert_topk_matches(res.scores, res.ids, want_s, want_i, f"serve_engine {tag} nq={n}")
+            assert not np.isin(res.ids, list(deleted)).any(), f"{tag}: a deleted id came back"
+            assert merge == n_parts, f"{tag} nq={n}: {merge} merge launches for {n_parts} parts"
+            assert res.stats["segments"] == n_parts - 1
+            log(phase="serve_engine", burst=tag, nq=n, wall_ms=res.stats["wall_s"] * 1e3,
+                executors_wall_ms=exec_wall * 1e3,
+                server_overhead_ms=(res.stats["wall_s"] - exec_wall) * 1e3,
+                parts=n_parts, ring_topk_launches=ring.ring, merge_topk_launches=merge,
+                launches=launches, delta_candidates=res.stats["delta_candidates"],
+                summary={k: v for k, v in srv.stats.summary().items() if v})
+            lo += n
+
+    ops.reset_launch_counts()
+    # 1. burst A: fresh ids, overwrites near corpus rows (and one near each
+    # query, so every query's top-10 meets the delta), deletes incl. fresh ids
+    fresh_a = np.arange(nb, nb + 5_000)
+    nq_all = q_all.shape[0]
+    over_a = rng.choice(nb, size=5_000, replace=False)
+    over_x = near(rng.choice(nb, size=5_000), 0.05)
+    over_x[:nq_all] = q_all + 0.01 * rng.standard_normal(q_all.shape).astype(np.float32)
+    keep = np.setdiff1d(np.arange(nb), over_a)
+    del_a = np.concatenate([rng.choice(keep, size=4_500, replace=False),
+                            rng.choice(fresh_a, size=500, replace=False)])
+    burst("A", fresh_a, fresh[:5_000], over_a, over_x, del_a)
+    serve_batches("A", n_parts=2)
+    # 2. seal the delta (a second sealed segment), then burst B
+    t0 = time.perf_counter()
+    data.compact_inline()
+    log(phase="serve_engine_seal", seconds=time.perf_counter() - t0,
+        segments=[s.nb for s in data.segments], generation=data.generation)
+    fresh_b = np.arange(2 * nb, 2 * nb + 1_000)
+    live_a = np.setdiff1d(np.concatenate([fresh_a, over_a]), del_a)
+    over_b = np.concatenate([rng.choice(live_a, size=500, replace=False),
+                             rng.choice(keep, size=500, replace=False)])
+    keep_b = np.setdiff1d(np.concatenate([keep, live_a]), over_b)
+    del_b = np.concatenate([rng.choice(keep_b, size=900, replace=False),
+                            rng.choice(fresh_b, size=100, replace=False)])
+    burst("B", fresh_b, fresh[5_000:6_000], over_b, near(rng.choice(nb, size=1_000), 0.05),
+          del_b)
+    serve_batches("B", n_parts=3)
+    assert srv.stats.generation_swaps == 1 and srv.generation == 1
+
+    # 3. int8 server on the same data: k = 10, and k = 20 (K' = 80)
+    q128 = q_all[sum(sizes[:3]):sum(sizes[:3]) + 128]
+    t0 = time.perf_counter()
+    srv8 = HarmonyServer(data, n_nodes=4, backend="spmd", precision="int8",
+                         executor_cfg=ExecutorConfig())
+    setup8 = time.perf_counter() - t0
+    live_ids, live_x = data.live_vectors()
+    for k in (10, 20):
+        before = ops.launch_counts()
+        with RingTopkLaunches() as ring:
+            res8 = srv8.search_batch(q128, k=k)
+        after = ops.launch_counts()
+        res32 = srv.search_batch(q128, k=k)
+        ids = res8.ids
+        assert (ids >= 0).all(), "int8: a row came back short of k"
+        assert all(len(set(r.tolist())) == k for r in ids), "int8: repeated id"
+        pos = np.searchsorted(live_ids, ids)
+        assert np.array_equal(live_ids[np.clip(pos, 0, live_ids.size - 1)], ids), \
+            "int8: an id that is not live"
+        xv = torch.as_tensor(live_x[pos]).to(dev).double()
+        qd = torch.as_tensor(q128).to(dev).double()[:, None, :]
+        exact = ((xv - qd) ** 2).sum(2).cpu().numpy()
+        np.testing.assert_allclose(res8.scores, exact, rtol=1e-3, atol=1e-3)
+        recall = recall_at_k(ids, res32.ids)
+        assert recall >= 0.98, f"int8 server recall@{k} vs fp32 {recall}"
+        log(phase="serve_engine_int8", nq=128, k=k, rerank_k=k * 4, setup_s=setup8,
+            wall_ms=res8.stats["wall_s"] * 1e3, recall_vs_fp32_server=recall,
+            ring_topk_launches=ring.ring,
+            merge_topk_launches=after["running_topk_update"] - before["running_topk_update"]
+            - ring.ring,
+            launches={n: after[n] - before[n] for n in after})
+    counts = ops.launch_counts()
+    for name in ("partial_distance_update", "int8_partial_distance_update",
+                 "running_topk_update"):
+        assert counts[name] > 0, f"serve_engine: {name} never launched"
+    for name in ("partial_distance_update_ref", "int8_partial_distance_update_ref",
+                 "running_topk_ref"):
+        assert counts[name] == 0, f"serve_engine: the plain {name} ran"
+    del srv8
+    torch.cuda.empty_cache()
+
+    # 4. the host backend (harmony_search and the host merge): no kernel
+    q8 = q_all[1:9]
+    res_s = srv.search_batch(q8)
+    before = ops.launch_counts()
+    res_h = srv.search_batch(q8, backend="host")
+    after = ops.launch_counts()
+    assert all(after[n] == before[n] for n in after), "the host backend launched a kernel"
+    assert_topk_matches(res_h.scores, res_h.ids, res_s.scores, res_s.ids, "host vs spmd")
+    log(phase="serve_engine_host", nq=8, wall_ms=res_h.stats["wall_s"] * 1e3,
+        spmd_wall_ms=res_s.stats["wall_s"] * 1e3)
+
+    # 5. an int64 id: served first at distance 0, through the host merge
+    big = 3_000_000_000
+    vec = q_all[:1] + 0.5
+    srv.upsert([big], vec)
+    before = ops.launch_counts()
+    with RingTopkLaunches() as ring:
+        res = srv.search_batch(vec)
+    after = ops.launch_counts()
+    merge = after["running_topk_update"] - before["running_topk_update"] - ring.ring
+    assert int(res.ids[0, 0]) == big and abs(float(res.scores[0, 0])) <= 1e-3, \
+        f"int64 id: {res.ids[0]} {res.scores[0]}"
+    assert ring.ring > 0 and merge == 0, f"int64 id: ring {ring.ring}, merge {merge}"
+    log(phase="serve_engine_int64", id=big, score=float(res.scores[0, 0]),
+        ring_topk_launches=ring.ring, merge_topk_launches=merge)
+    counts = ops.launch_counts()
+    log(phase="serve_engine_path", seconds=time.perf_counter() - t_phase, counts=counts,
+        summary={k: v for k, v in srv.stats.summary().items() if v})
+    assert counts["running_topk_ref"] == 0 and counts["partial_distance_update_ref"] == 0
+    del srv
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -790,7 +1088,13 @@ def main() -> int:
 
     time_topk_path_shaped(dev, smi, splits)
 
-    # ---------------------------------------------------------- 5. report
+    # ---------------------------------------------------------- 5. serve_engine
+    counts = serve_engine(dev, smi, index, ds, q_all, sizes)
+    for k in served:
+        served[k] += counts[k]
+    time_merge_shapes(dev, smi)
+
+    # ---------------------------------------------------------- 6. report
     sources = {
         "partial_distance_update": ("src/repro_torch/kernels/csrc/partial_distance.cu",
                                     "src/repro/kernels/distance.py:127"),

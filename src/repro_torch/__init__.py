@@ -4,12 +4,15 @@ written by hand for Hopper (sm_90a).
 A port of the JAX package ``repro``, module by module, with the same
 layout and public names. It imports neither ``jax`` nor ``repro``.
 
-Slice 1 carries the fp32 serving path of the device executor:
-``repro_torch.serve.SpmdExecutor.search_batch`` → probe selection →
+The served entry point is ``repro_torch.serve.HarmonyServer.search_batch``
+over a mutable ``repro_torch.core.SegmentedIndex``: per sealed segment
+the device executor (``SpmdExecutor.search_batch`` → probe selection →
 τ prewarm → host-side probed-row gather → (qb, cap) bucket ladder →
 ``gather_local_candidates`` → ``ring_chunk_search`` on a virtual V×B
-mesh, whose two hot operations are the CUDA kernels in
-``repro_torch/kernels/csrc/``.
+mesh) or the host engine, a brute-force scan of the delta buffer, and a
+merge of the per-part top-ks. The hot operations are the CUDA kernels
+in ``repro_torch/kernels/csrc/``: the fp32 and int8 partial distances
+and the running top-K, which also folds the parts together.
 
 Every entry point that allocates on a device takes ``device=None``,
 which means CUDA; without CUDA it raises. Tests pass ``device="cpu"``,

@@ -10,7 +10,9 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` → ``torch.device("cuda")``; anything else as given.
+    """``None`` → the current CUDA device; anything else as given, a CUDA
+    device always with its index (``cuda`` → ``cuda:0``), so that devices
+    compare equal to the ``.device`` of the tensors placed on them.
 
     Raises ``RuntimeError`` when CUDA is asked for (explicitly or by
     default) and absent: nothing drops to the CPU on its own. The first
@@ -26,4 +28,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

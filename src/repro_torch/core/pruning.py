@@ -1,19 +1,75 @@
-"""Monotone dimension-level pruning: exact scores and the τ prewarm.
+"""Monotone dimension-level pruning: exact scores, the τ prewarm and the
+host engine's heap merge.
 
 S_k²(p,q) = Σ_{j≤k} d_j²(p,q) is non-decreasing in k, so once
 S_k² > τ ≥ (final kth-best distance), p can never enter the top-K. τ
 starts at the kth-best distance of a sample of real candidates, an upper
 bound, so pruning changes work and never results.
+
+``TopKHeap`` and ``partial_scores_block`` serve the host engine
+(``harmony_search``) and the host merge; they are numpy, as in the
+reference.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.index import IVFIndex
+
+
+@dataclass
+class TopKHeap:
+    """Vectorized per-query top-K state (scores ascending, -1 padded ids)."""
+
+    scores: np.ndarray   # [NQ, K] float32, +inf padded
+    ids: np.ndarray      # [NQ, K] int64, -1 padded
+
+    @classmethod
+    def empty(cls, nq: int, k: int) -> "TopKHeap":
+        return cls(np.full((nq, k), np.inf, np.float32), np.full((nq, k), -1, np.int64))
+
+    @property
+    def tau(self) -> np.ndarray:
+        """Current per-query pruning threshold = kth best so far (+inf if
+        the heap is not full)."""
+        return self.scores[:, -1].copy()
+
+    def merge_rows(self, rows: np.ndarray, new_scores: np.ndarray, new_ids: np.ndarray):
+        """Merge candidates [m, C] into the heaps of the queries ``rows``
+        [m] (a partial sort, then a stable sort of the kept K)."""
+        if rows.size == 0 or new_scores.shape[1] == 0:
+            return
+        k = self.scores.shape[1]
+        cat_s = np.concatenate([self.scores[rows], new_scores.astype(np.float32)], axis=1)
+        cat_i = np.concatenate([self.ids[rows], new_ids.astype(np.int64)], axis=1)
+        part = np.argpartition(cat_s, kth=k - 1, axis=1)[:, :k]
+        take_s = np.take_along_axis(cat_s, part, axis=1)
+        take_i = np.take_along_axis(cat_i, part, axis=1)
+        order = np.argsort(take_s, axis=1, kind="stable")
+        self.scores[rows] = np.take_along_axis(take_s, order, axis=1)
+        self.ids[rows] = np.take_along_axis(take_i, order, axis=1)
+
+
+def partial_scores_block(
+    x_blk: np.ndarray,
+    q_blk: np.ndarray,
+    xnorm2_blk: np.ndarray,
+    metric: str = "l2",
+) -> np.ndarray:
+    """One dimension block's contribution d_b² (or −partial dot), [NQ, N]:
+    ‖p‖²_b − 2 p·q|_b + ‖q‖²_b (L2) or −p·q|_b (IP). Summing over blocks
+    gives the exact score."""
+    if metric == "l2":
+        qn = np.sum(q_blk * q_blk, axis=1)[:, None]
+        return (qn - 2.0 * (q_blk @ x_blk.T) + xnorm2_blk[None, :]).astype(np.float32)
+    elif metric == "ip":
+        return (-(q_blk @ x_blk.T)).astype(np.float32)
+    raise ValueError(metric)
 
 
 def exact_scores(x: torch.Tensor, q: torch.Tensor, metric: str = "l2"

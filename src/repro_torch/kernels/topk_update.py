@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_K = 64
+MAX_K = 256          # the kernel keeps at most 8 list entries a lane
 MAX_C = 4096
 _SIG = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -30,6 +30,19 @@ def _lib():
         lib.topk_update_error_string.argtypes = [ctypes.c_int]
         lib.topk_update_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_limits(k: int, c: int) -> None:
+    """Raise ``ValueError``, naming the limit, when the kernel cannot take
+    a list of ``k`` or a chunk of ``c`` columns. Callers that choose K run
+    it before any launch, on every device, so a K the card would refuse
+    fails the same way on the CPU."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside 1..{MAX_K}, the running top-K "
+                         "kernel's limit")
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"C={c} outside 1..{MAX_C}, the running top-K "
+                         "kernel's limit")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
@@ -59,10 +72,7 @@ def running_topk_update(
     m, c = scores.shape
     if k != run_s.shape[1]:
         raise ValueError(f"k={k} but the running list holds {run_s.shape[1]}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside 1..{MAX_K}")
-    if not 1 <= c <= MAX_C:
-        raise ValueError(f"C={c} outside 1..{MAX_C}")
+    check_limits(k, c)
     _check("scores", scores, (m, c), torch.float32)
     _check("ids", ids, (m, c), torch.int32)
     _check("run_s", run_s, (m, k), torch.float32)

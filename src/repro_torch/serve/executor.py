@@ -54,6 +54,7 @@ from repro_torch.core.pruning import prewarm_tau
 from repro_torch.core.search import rerank_exact
 from repro_torch.core.router import load_aware_assignment, ring_offsets
 from repro_torch.core.types import PartitionPlan, SearchResult
+from repro_torch.kernels import topk_update
 
 
 @dataclass(frozen=True)
@@ -210,10 +211,14 @@ class SpmdExecutor:
                     step(rows, qarr)
 
     def _k_step(self, k: int) -> int:
-        """The ring's K: k, or the int8 tier's K' = k·rerank_factor."""
+        """The ring's K: k, or the int8 tier's K' = k·rerank_factor.
+        Raises ``ValueError`` when it is beyond the top-K kernel's limit
+        (``topk_update.MAX_K``), on every device, before any launch."""
+        kp = k
         if self.precision == "int8":
-            return min(k * self.cfg.rerank_factor, self.index.nb)
-        return k
+            kp = min(k * self.cfg.rerank_factor, self.index.nb)
+        topk_update.check_limits(kp, self.cfg.chunk)
+        return kp
 
     # ----------------------------------------------------------- bucketing
     def _pick_bucket(self, ladder: Tuple[int, ...], need: int) -> int:
@@ -303,6 +308,7 @@ class SpmdExecutor:
         :meth:`_gather_rows`); the τ prewarm excludes the same rows so
         pruning stays exact over the live set."""
         k = k or self.k
+        k_step = self._k_step(k)
         queries = np.asarray(queries, np.float32)
         if queries.ndim == 1:
             queries = queries[None]
@@ -380,7 +386,6 @@ class SpmdExecutor:
             if wider:
                 pad = np.full((nq, wider[0] - w), -2, np.int32)
                 probes = np.concatenate([probes.astype(np.int32), pad], axis=1)
-        k_step = self._k_step(k)
         qb_b = self._pick_bucket(self.qb_buckets, nq)
         bscfg = dataclasses.replace(
             self._base_scfg, qb=qb_b, cap=cap_b, k=k_step, nprobe=probes.shape[1]

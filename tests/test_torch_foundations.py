@@ -52,7 +52,11 @@ def test_imports_without_jax_or_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "IMPORTED" in proc.stdout
-    assert len(mods) >= 15, mods
+    assert len(mods) >= 19, mods
+    # the served entry point's modules are among them
+    assert {"repro_torch.runtime", "repro_torch.runtime.elastic",
+            "repro_torch.serve.engine", "repro_torch.core.planner",
+            "repro_torch.core.cost_model"} <= set(mods)
 
 
 def test_source_scan_no_jax_or_reference_imports():

@@ -327,7 +327,9 @@ def _mk_topk(m, c, k, seed=0, frac_invalid=0.2, run_filled=True, ties=False,
 TOPK_CASES = [(1, 8, 4, "uniform"), (8, 64, 10, "uniform"), (13, 100, 5, "uniform"),
               (4, 16, 16, "uniform"), (64, 256, 10, "uniform"), (4, 256, 40, "uniform"),
               (16, 256, 10, "path"), (8, 64, 40, "run_last"), (4, 256, 40, "finite_chunk"),
-              (8, 64, 10, "finite_chunk"), (10, 10, 10, "uniform"), (4, 40, 40, "uniform")]
+              (8, 64, 10, "finite_chunk"), (10, 10, 10, "uniform"), (4, 40, 40, "uniform"),
+              # K above 64: the int8 ring at k = 20 (K' = 80) and the limit, 256
+              (4, 96, 80, "uniform"), (2, 256, 256, "uniform"), (2, 256, 256, "finite_chunk")]
 
 
 @pytest.mark.parametrize("m,c,k,kind", [
@@ -405,7 +407,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 3)), k=3)
     with pytest.raises(ValueError, match="k="):
-        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 65)), k=65)
+        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 257)), k=257)
     x, xn2, q, qn2, s2, acc, tau = _mk_int8(4, 8, 16)
     args = (*_t(x, xn2, q, qn2), torch.tensor(s2), *_t(acc, tau))
     with pytest.raises(ValueError, match="CUDA"):
@@ -413,6 +415,62 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for tile_k in (0, 1025):
         with pytest.raises(ValueError, match="tile_k"):
             distance_int8.int8_partial_distance_update(*args, tile_k=tile_k)
+
+
+def test_topk_limits_raise_before_any_launch():
+    """The top-K kernel takes K <= 256 and C <= 4096; the executor (its
+    ring's K, k·rerank_factor in the int8 tier) and the fused merge check
+    that before any launch, on every device, with no switch to the plain
+    version."""
+    from repro_torch.config import HarmonyConfig
+    from repro_torch.core import build_ivf, merge_topk
+    from repro_torch.serve import ExecutorConfig, SpmdExecutor
+
+    assert (topk_update.MAX_K, topk_update.MAX_C) == (256, 4096)
+    topk_update.check_limits(256, 4096)
+    for k, c in ((0, 8), (257, 8), (10, 0), (10, 4097)):
+        with pytest.raises(ValueError, match="256" if k in (0, 257) else "4096"):
+            topk_update.check_limits(k, c)
+    with pytest.raises(ValueError, match="C=4097"):
+        topk_update.running_topk_update(*_t(*_mk_topk(2, 4097, 8)), k=8)
+    x = np.random.default_rng(0).normal(size=(600, 8)).astype(np.float32)
+    cfg = HarmonyConfig(dim=8, nlist=4, nprobe=2, topk=5, kmeans_iters=2)
+    index = build_ivf(x, cfg, device="cpu")
+    ops.reset_launch_counts()
+    int8 = SpmdExecutor(index, ExecutorConfig(precision="int8"), device="cpu")
+    assert int8.search_batch(x[:2], k=64).stats["rerank_k"] == 256
+    calls = ops.launch_counts()["running_topk_ref"]
+    with pytest.raises(ValueError, match="256"):          # K' = 65 * 4 = 260
+        int8.search_batch(x[:2], k=65)
+    with pytest.raises(ValueError, match="256"):
+        SpmdExecutor(index, device="cpu").search_batch(x[:2], k=257)
+    with pytest.raises(ValueError, match="256"):
+        int8.warmup(k=65)
+    with pytest.raises(ValueError, match="256"):
+        merge_topk([(np.zeros((2, 300), np.float32), np.zeros((2, 300), np.int64))],
+                   300, fused=True, device="cpu")
+    assert ops.launch_counts()["running_topk_ref"] == calls
+
+
+@pytest.mark.cuda
+def test_cuda_topk_above_64_and_merge_shapes():
+    """Four and eight list entries a lane (K = 80, 256) and the served
+    merge's shape (C = K = k), bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    cases = [(130, c, k) for k in (80, 256) for c in (80, 256, 4096)]
+    cases += [(m, k, k) for m in (1, 128, 160) for k in (10, 20)]
+    for m, c, k in cases:
+        for kind in ("uniform", "path", "run_last", "finite_chunk"):
+            for run_filled in (True, False):
+                s, ids, rs, ri = (a.to(dev) for a in _t(*_mk_topk(
+                    m, c, k, seed=m + c + k, kind=kind, run_filled=run_filled,
+                    ties=kind == "uniform")))
+                for ids_form in (ids, ids[0].expand(m, c)):
+                    gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
+                    ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
+                    assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
 
 
 def test_kernel_modules_import_without_building():
