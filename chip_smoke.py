@@ -50,9 +50,12 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
    and launch the top-K kernel exactly once per part beyond the ring's
    launches (``RingTopkLaunches``). Then an int8 server on the same data
    at k = 10 and k = 20 (K' = 80: exact fp32 scores, live distinct ids,
-   recall ≥ 0.98 against the fp32 server), the host backend (equal to the
-   spmd batch, no kernel launched) and an int64 id (first at distance 0,
-   its merge on the host). The top-K kernel is timed at the merge's
+   recall ≥ 0.98 against the fp32 server), a per-batch precision override
+   on each server (served by executors of that precision, equal to the
+   other server's batch; no host-engine layout is ever built on spmd),
+   the host backend on request (equal to the spmd batch, no kernel
+   launched) and an int64 id (first at distance 0, on the card: in the
+   delta, and once sealed). The top-K kernel is timed at the merge's
    shapes and at K = 80, 256 (``time_merge_shapes``).
 6. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
 
@@ -611,6 +614,12 @@ class RingTopkLaunches:
         self.cls.search_batch = self.orig
 
 
+def executors_wall(srv):
+    """Summed ``wall_s`` of every executor the server has built."""
+    return sum(ex.wall_s for st in srv._seg_states.values()
+               for ex in st.executors.values())
+
+
 def engine_oracle(dev, snap, q, k):
     """The served batch's answer, built without the ring or the merge
     kernel: per sealed segment ``search_oracle`` with its tombstones, an
@@ -713,14 +722,12 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
         lo = 0
         for n in sizes:
             q = q_all[lo:lo + n]
-            exec_wall = sum(st.executor.wall_s for st in srv._seg_states.values()
-                            if st.executor is not None)
+            exec_wall = executors_wall(srv)
             before = ops.launch_counts()
             with RingTopkLaunches() as ring:
                 res = srv.search_batch(q)
             after = ops.launch_counts()
-            exec_wall = sum(st.executor.wall_s for st in srv._seg_states.values()
-                            if st.executor is not None) - exec_wall
+            exec_wall = executors_wall(srv) - exec_wall
             launches = {k: after[k] - before[k] for k in after}
             merge = launches["running_topk_update"] - ring.ring
             want_s, want_i = engine_oracle(dev, data.snapshot(), q, 10)
@@ -773,6 +780,7 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
                          executor_cfg=ExecutorConfig())
     setup8 = time.perf_counter() - t0
     live_ids, live_x = data.live_vectors()
+    res8_by_k, res32_by_k = {}, {}
     for k in (10, 20):
         before = ops.launch_counts()
         with RingTopkLaunches() as ring:
@@ -791,12 +799,30 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
         np.testing.assert_allclose(res8.scores, exact, rtol=1e-3, atol=1e-3)
         recall = recall_at_k(ids, res32.ids)
         assert recall >= 0.98, f"int8 server recall@{k} vs fp32 {recall}"
+        res8_by_k[k], res32_by_k[k] = res8, res32
         log(phase="serve_engine_int8", nq=128, k=k, rerank_k=k * 4, setup_s=setup8,
             wall_ms=res8.stats["wall_s"] * 1e3, recall_vs_fp32_server=recall,
             ring_topk_launches=ring.ring,
             merge_topk_launches=after["running_topk_update"] - before["running_topk_update"]
             - ring.ring,
             launches={n: after[n] - before[n] for n in after})
+    # a per-batch precision override: served by the segments' executors of
+    # that precision (built on first use), equal to the other server's batch
+    for srv_a, prec, k, want in ((srv, "int8", 20, res8_by_k[20]),
+                                 (srv8, "fp32", 10, res32_by_k[10])):
+        before = ops.launch_counts()
+        res_o = srv_a.search_batch(q128, k=k, precision=prec)
+        after = ops.launch_counts()
+        assert_topk_matches(res_o.scores, res_o.ids, want.scores, want.ids,
+                            f"precision override {prec}")
+        dist = "int8_partial_distance_update" if prec == "int8" else "partial_distance_update"
+        assert after[dist] > before[dist], f"override {prec}: no {dist} launch"
+        assert all(prec in st.executors for st in srv_a._seg_states.values())
+        log(phase="serve_engine_override", precision=prec, nq=128, k=k,
+            wall_ms=res_o.stats["wall_s"] * 1e3,
+            launches={n: after[n] - before[n] for n in after})
+    assert all(st.corpus is None for s_ in (srv, srv8) for st in s_._seg_states.values()), \
+        "the spmd backend built a host-engine layout"
     counts = ops.launch_counts()
     for name in ("partial_distance_update", "int8_partial_distance_update",
                  "running_topk_update"):
@@ -818,20 +844,28 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
     log(phase="serve_engine_host", nq=8, wall_ms=res_h.stats["wall_s"] * 1e3,
         spmd_wall_ms=res_s.stats["wall_s"] * 1e3)
 
-    # 5. an int64 id: served first at distance 0, through the host merge
+    # 5. an int64 id: served first at distance 0, on the card, in the delta
+    # (the merge carries columns) and once sealed (the ring carries rows)
     big = 3_000_000_000
     vec = q_all[:1] + 0.5
     srv.upsert([big], vec)
-    before = ops.launch_counts()
-    with RingTopkLaunches() as ring:
-        res = srv.search_batch(vec)
-    after = ops.launch_counts()
-    merge = after["running_topk_update"] - before["running_topk_update"] - ring.ring
-    assert int(res.ids[0, 0]) == big and abs(float(res.scores[0, 0])) <= 1e-3, \
-        f"int64 id: {res.ids[0]} {res.scores[0]}"
-    assert ring.ring > 0 and merge == 0, f"int64 id: ring {ring.ring}, merge {merge}"
-    log(phase="serve_engine_int64", id=big, score=float(res.scores[0, 0]),
-        ring_topk_launches=ring.ring, merge_topk_launches=merge)
+    for where in ("delta", "sealed"):
+        if where == "sealed":
+            data.compact_inline()
+        n_parts = data.n_segments + (data.delta_len > 0)
+        before = ops.launch_counts()
+        with RingTopkLaunches() as ring:
+            res = srv.search_batch(vec)
+        after = ops.launch_counts()
+        merge = after["running_topk_update"] - before["running_topk_update"] - ring.ring
+        assert int(res.ids[0, 0]) == big and abs(float(res.scores[0, 0])) <= 1e-3, \
+            f"int64 id ({where}): {res.ids[0]} {res.scores[0]}"
+        assert ring.ring > 0 and merge == n_parts, \
+            f"int64 id ({where}): ring {ring.ring}, merge {merge} for {n_parts} parts"
+        log(phase="serve_engine_int64", id=big, where=where, score=float(res.scores[0, 0]),
+            parts=n_parts, ring_topk_launches=ring.ring, merge_topk_launches=merge)
+    sealed = srv._seg_states[max(srv._seg_states)]
+    assert big in sealed.segment.index.ids and sealed.executors and sealed.corpus is None
     counts = ops.launch_counts()
     log(phase="serve_engine_path", seconds=time.perf_counter() - t_phase, counts=counts,
         summary={k: v for k, v in srv.stats.summary().items() if v})

@@ -919,9 +919,9 @@ class SegmentedIndex:
         tombstoned in the same critical section. ``meta`` attaches
         per-row metadata (omitting it clears a replaced row's).
 
-        Ids are int64 throughout; the device pipeline carries ids as
-        int32, so a segment or merge with larger ids goes to the host
-        engine and the host merge."""
+        Ids are int64 throughout; the device pipeline carries int32 row
+        positions and maps them to ids on the host, so any id is served
+        on the card."""
         vecs = np.asarray(vecs, np.float32)
         if vecs.ndim == 1:
             vecs = vecs[None]

@@ -298,9 +298,8 @@ def harmony_search(
     The reference's numpy engine that models a cluster, run on the host
     layout of :func:`preassign` (CPU tensors, read as numpy); only the τ
     prewarm gathers its sample on the index's device. It launches no
-    kernel. The server reaches it only where the reference does:
-    ``backend="host"``, a segment whose ids do not fit int32, or a
-    per-batch precision override.
+    kernel. The server reaches it only on ``backend="host"``, which the
+    caller asks for.
 
     ``probes`` (int [nq, nprobe']) — precomputed probe table; skips the
     internal :func:`assign_queries` so a caller that already selected
@@ -575,29 +574,34 @@ def merge_topk(
     [NQ, k] int64, -1 where +inf). On equal scores the fused merge keeps
     the earlier part, then the lower column.
 
-    The kernel carries ids as int32; parts with external ids beyond the
-    int32 range go to the host merge rather than wrap.
+    The kernel carries each candidate's column in the concatenated parts
+    (int32), and the host gathers the int64 ids after the last fold, so
+    ids of any size take the fused path; the kernel never compares ids,
+    so the result is the one it gives on the ids themselves.
     """
     if not parts:
         raise ValueError("merge_topk needs at least one part")
     nq = parts[0][0].shape[0]
-    if fused and any(np.abs(ids).max(initial=0) > np.iinfo(np.int32).max
-                     for _, ids in parts):
-        fused = False
     if fused:
         for sc, _ in parts:
             topk_update.check_limits(k, sc.shape[1])
         dev = resolve_device(device)
         run_s = torch.full((nq, k), torch.inf, dtype=torch.float32, device=dev)
         run_i = torch.full((nq, k), -1, dtype=torch.int32, device=dev)
-        for sc, ids in parts:
+        off = 0
+        for sc, _ in parts:
+            w = sc.shape[1]
+            cols = torch.arange(off, off + w, dtype=torch.int32, device=dev)
             run_s, run_i = ops.running_topk_update(
                 torch.as_tensor(np.ascontiguousarray(sc, np.float32)).to(dev),
-                torch.as_tensor(np.ascontiguousarray(ids, np.int32)).to(dev),
-                run_s, run_i, k=k,
+                cols.expand(nq, w), run_s, run_i, k=k,
             )
+            off += w
         scores = run_s.cpu().numpy()
-        out_i = run_i.cpu().numpy().astype(np.int64)
+        cols = run_i.cpu().numpy().astype(np.int64)
+        cat_ids = np.concatenate([np.asarray(ids, np.int64) for _, ids in parts], 1)
+        out_i = np.take_along_axis(cat_ids, np.maximum(cols, 0), axis=1)
+        out_i[cols < 0] = -1
     else:
         heap = TopKHeap.empty(nq, k)
         rows = np.arange(nq)

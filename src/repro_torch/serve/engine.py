@@ -4,8 +4,10 @@ segmented data plane.
 The server serves a :class:`repro_torch.core.SegmentedIndex` (sealed
 segments + delta buffer + tombstones; a plain ``IVFIndex`` is wrapped as
 the one-sealed-segment special case). Per segment it derives a
-cost-model plan, a host ``ShardedCorpus``, and (lazily, for the spmd
-backend) a device-resident :class:`~repro_torch.serve.executor.SpmdExecutor`.
+cost-model plan and, lazily, a device-resident
+:class:`~repro_torch.serve.executor.SpmdExecutor` per precision served
+(the default ``backend="spmd"``) or the host engine's ``ShardedCorpus``
+(``backend="host"``, asked for by the caller).
 A batch searches every sealed segment (tombstone-masked) plus a
 brute-force delta scan on the server's device, and merges the
 per-segment top-Ks; on the spmd backend that merge runs on the running
@@ -202,24 +204,11 @@ class _SegmentState:
 
     segment: Segment
     decision: object                 # PlanDecision for this segment
-    corpus: object                   # ShardedCorpus (host engine layout)
-    executor: object = None          # SpmdExecutor, built lazily (spmd)
     tier: str = "device"             # executor residency: "device" | "host"
-
-    @property
-    def int32_ids(self) -> bool:
-        """Do this segment's external ids fit the device pipeline's int32
-        id carrier? Cached — segments are immutable. A segment with
-        larger ids is served by the host engine even under the spmd
-        backend (silent id wraparound is never acceptable)."""
-        cached = self.__dict__.get("_int32_ids")
-        if cached is None:
-            ids = self.segment.index.ids
-            cached = bool(
-                np.abs(ids).max(initial=0) <= np.iinfo(np.int32).max
-            )
-            self.__dict__["_int32_ids"] = cached
-        return cached
+    # built lazily: SpmdExecutor per precision served (spmd), and the
+    # host engine's ShardedCorpus for decision.plan (backend="host")
+    executors: Dict[str, SpmdExecutor] = field(default_factory=dict)
+    corpus: object = None
 
 
 class HarmonyServer(DataPlane):
@@ -229,10 +218,11 @@ class HarmonyServer(DataPlane):
     Owns the shared data plane (a plain ``IVFIndex`` is wrapped as one
     sealed segment), per-segment plans, corpora and executors derived for
     its simulated cluster of ``n_nodes``, and the backend switch between
-    the host engine (``backend="host"``, :func:`harmony_search`) and the
-    device-resident executor (``backend="spmd"``). The data plane's
-    sealed rows must live on ``device``; the executors, the delta scan
-    and the fused merge run there.
+    the device-resident executor (``backend="spmd"``, the default) and
+    the host engine (``backend="host"``, :func:`harmony_search`, numpy on
+    the CPU; the reference's default, here only on request). The data
+    plane's sealed rows must live on ``device``; the executors, the delta
+    scan and the fused merge run there.
 
     >>> import numpy as np
     >>> from repro_torch.config import HarmonyConfig
@@ -263,7 +253,7 @@ class HarmonyServer(DataPlane):
         cfg: Optional[HarmonyConfig] = None,
         replan_every: int = 0,          # batches between plan refreshes (0=off)
         workload_window: int = 2048,
-        backend: str = "host",          # "host" | "spmd" default for batches
+        backend: str = "spmd",          # "spmd" | "host" default for batches
         executor_cfg: Optional[ExecutorConfig] = None,
         precision: str = "fp32",        # "int8" → quantized tier + fp32 re-rank
         device: DeviceLike = None,
@@ -342,21 +332,36 @@ class HarmonyServer(DataPlane):
             # eager: quantize off the serving path (idempotent: seal()
             # already made the codes for segments born in this plane)
             seg.index.int8_quant(self.cfg.quant_blocks)
-        return _SegmentState(
-            segment=seg, decision=decision,
-            corpus=preassign(seg.index, decision.plan),
-            tier=tier,
-        )
+        return _SegmentState(segment=seg, decision=decision, tier=tier)
 
-    def _executor_for(self, st: _SegmentState) -> SpmdExecutor:
-        if st.executor is None:
+    def _executor_for(self, st: _SegmentState,
+                      precision: Optional[str] = None) -> SpmdExecutor:
+        """The segment's executor of ``precision`` (default the server's),
+        built on first use: a per-batch precision override gets an
+        executor of its own, so it is served on the card as well."""
+        prec = precision or self.precision
+        ex = st.executors.get(prec)
+        if ex is None:
             ecfg = self._executor_cfg or ExecutorConfig()
-            if self.precision == "int8" and ecfg.precision != "int8":
-                ecfg = dataclasses.replace(ecfg, precision="int8",
-                                           rerank_factor=self.cfg.rerank_factor)
-            st.executor = SpmdExecutor(st.segment.index, ecfg, tier=st.tier,
-                                       device=self.device)
-        return st.executor
+            if ecfg.precision != prec:
+                ecfg = dataclasses.replace(ecfg, precision=prec)
+                if prec == "int8":
+                    ecfg = dataclasses.replace(
+                        ecfg, rerank_factor=self.cfg.rerank_factor)
+            if prec == "int8":
+                st.segment.index.int8_quant(self.cfg.quant_blocks)
+            ex = st.executors.setdefault(prec, SpmdExecutor(
+                st.segment.index, ecfg, tier=st.tier, device=self.device))
+        return ex
+
+    @staticmethod
+    def _corpus_for(st: _SegmentState):
+        """The host engine's layout of the segment for its plan, built on
+        first use (only ``backend="host"`` reads it)."""
+        corpus = st.corpus
+        if corpus is None:
+            corpus = st.corpus = preassign(st.segment.index, st.decision.plan)
+        return corpus
 
     def _sync(self, snap: DataSnapshot) -> bool:
         """Adopt a data-plane snapshot: build (or promote pre-staged)
@@ -417,7 +422,7 @@ class HarmonyServer(DataPlane):
             if known:
                 continue
             st = self._build_state(seg)
-            if self.backend == "spmd" and st.int32_ids:
+            if self.backend == "spmd":
                 self._executor_for(st).warmup(k=self.cfg.topk)
             with self._dp_mu:
                 self._staged[seg.seg_id] = st
@@ -436,8 +441,7 @@ class HarmonyServer(DataPlane):
         with self._dp_mu:
             states = [self._seg_states[s.seg_id] for s in snap.segments]
         for st in states:
-            if st.int32_ids:
-                self._executor_for(st).warmup(k=k)
+            self._executor_for(st).warmup(k=k)
 
     @property
     def executor(self) -> SpmdExecutor:
@@ -469,7 +473,7 @@ class HarmonyServer(DataPlane):
             for st in states:
                 st.decision = self._plan_for(
                     st.segment, sample if st.segment is primary else None)
-                st.corpus = preassign(st.segment.index, st.decision.plan)
+                st.corpus = None                 # rebuilt for the new plan
                 if st.segment is primary:
                     self._plan_decision = st.decision
         self.stats.replans += 1
@@ -486,7 +490,8 @@ class HarmonyServer(DataPlane):
             if primary is None:
                 raise RuntimeError("no sealed segments (all data in delta "
                                    "or the corpus is empty)")
-            return self._seg_states[primary.seg_id].corpus
+            st = self._seg_states[primary.seg_id]
+        return self._corpus_for(st)
 
     # -------------------------------------------------------------- elastic
     def fail_node(self, node: int):
@@ -521,12 +526,10 @@ class HarmonyServer(DataPlane):
         The snapshot is taken once per batch: a concurrent
         upsert/delete/compaction never tears an in-flight batch.
 
-        A segment whose external ids do not fit int32 is served by the
-        host engine, and a merge with such ids by the host merge, even on
-        the spmd backend. ``precision`` overrides the server's tier per
-        batch; an override that differs from the executors' precision is
-        served on the host path (:func:`two_stage_search` for int8).
-        ``flt`` and ``hybrid_text`` are not ported yet and raise
+        On the spmd backend every segment, whatever its ids, goes through
+        its executor, and ``precision`` (overriding the server's tier per
+        batch) through the segment's executor of that precision. ``flt``
+        and ``hybrid_text`` are not ported yet and raise
         ``NotImplementedError``."""
         if isinstance(queries, SearchRequest):
             req = queries
@@ -573,8 +576,8 @@ class HarmonyServer(DataPlane):
             self.data.note_probes(seg.seg_id, probes)
             if seg is primary:
                 self._recent_probes.append(probes)
-            if backend == "spmd" and st.int32_ids and prec == self.precision:
-                res = self._executor_for(st).search_batch(
+            if backend == "spmd":
+                res = self._executor_for(st, prec).search_batch(
                     queries, k=k, probes=probes, dead_rows=dead_arg
                 )
             elif prec == "int8":
@@ -586,8 +589,8 @@ class HarmonyServer(DataPlane):
                 )
             else:
                 res = harmony_search(
-                    seg.index, st.corpus, queries, k=k, probes=probes,
-                    dead_rows=dead_arg,
+                    seg.index, self._corpus_for(st), queries, k=k,
+                    probes=probes, dead_rows=dead_arg,
                     dead_key=(snap.generation, snap.dead_version),
                 )
             seg_results.append(res)

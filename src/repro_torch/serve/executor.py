@@ -4,8 +4,10 @@ The port of ``repro/serve/executor.py`` for ``tier="device"``, in both
 precisions:
 
 * **Corpus residency** — the sharded corpus, per-block norms, cluster ids
-  and row ids are packed once on the host, block-major for the virtual
-  V × B mesh (:func:`repro_torch.core.pipeline.resident_arrays`), and
+  and packed row positions (int32 whatever the external ids; the host
+  maps them to ids after the batch) are packed once on the host,
+  block-major for the virtual V × B mesh
+  (:func:`repro_torch.core.pipeline.resident_arrays`), and
   uploaded as the device's one copy of the sharded rows, beside the
   index's own ``x``. A batch moves only its queries, probe table, τ seeds
   and an int32 row-index table to the device.
@@ -165,11 +167,15 @@ class SpmdExecutor:
         quant = index.int8_quant() if self.precision == "int8" else None
         arrays = build_corpus_arrays(self.corpus, self._base_scfg, quant=quant)
         self._quant_grid = arrays.pop("quant_grid", None)
+        # the ring carries packed row positions, not external ids: they fit
+        # int32 whatever the ids are, and the host maps them back to ids
+        # (and the int8 re-rank to rows of index.x) after the batch
+        pos = np.full(self.corpus.ids_shard.shape, -1, np.int32)
+        pos[self.corpus.packed_shard, self.corpus.packed_row] = np.arange(
+            index.nb, dtype=np.int32)
+        arrays["row_ids"] = torch.as_tensor(pos, device=arrays["row_ids"].device)
         packed = resident_arrays(arrays, self._base_scfg)
         self._resident = {name: a.to(self.device) for name, a in packed.items()}
-        # stage-2 re-rank lookup (ext id → packed row), built lazily
-        self._id_order: Optional[np.ndarray] = None
-        self._sorted_ids: Optional[np.ndarray] = None
 
         # step cache: (qb, cap, k, nprobe) → step; trace_counts counts builds
         self._steps: Dict[Tuple[int, int, int, int], object] = {}
@@ -396,10 +402,11 @@ class SpmdExecutor:
         step = self._get_step(bscfg)
         gs, gi, st = step(rows, qarr)
         scores = gs[:nq].cpu().numpy()
-        ids = gi[:nq].cpu().numpy().astype(np.int64)
-        ids[~np.isfinite(scores)] = -1
+        rows_k = gi[:nq].cpu().numpy().astype(np.int64)
+        rows_k[~np.isfinite(scores)] = -1
         if int8:
-            scores, ids = self._rerank(queries, scores, ids, k)
+            scores, rows_k = self._rerank(queries, scores, rows_k, k)
+        ids = np.where(rows_k >= 0, self.index.ids[np.maximum(rows_k, 0)], -1)
         st = st.cpu().numpy()
         dt = time.perf_counter() - t0
         self.dispatches += 1
@@ -429,35 +436,29 @@ class SpmdExecutor:
 
     # -------------------------------------------------------------- rerank
     def _rerank(self, queries: np.ndarray, s1_scores: np.ndarray,
-                s1_ids: np.ndarray, k: int):
+                s1_rows: np.ndarray, k: int):
         """Exact fp32 re-rank of the int8 stage-1 survivors.
 
-        Stage 1 returns the quantized-metric top ``K'`` external ids; the
-        host maps them to packed rows (numpy ``searchsorted``, as in the
-        reference), and the card gathers those rows of ``index.x``,
-        scores them exactly and keeps the top k with a stable sort.
-        Invalid survivors stay +inf / -1; with ``K' < k`` (tiny corpus)
-        the result is padded to k."""
-        nq, kp = s1_ids.shape
-        if self._id_order is None:
-            self._id_order = np.argsort(self.index.ids, kind="stable")
-            self._sorted_ids = self.index.ids[self._id_order]
-        valid = np.isfinite(s1_scores) & (s1_ids >= 0)
-        safe = np.where(valid, s1_ids, self._sorted_ids[0])
-        pos = np.searchsorted(self._sorted_ids, safe)
-        rows = self._id_order[np.clip(pos, 0, self.index.nb - 1)]
+        Stage 1 returns the quantized-metric top ``K'`` packed rows; the
+        card gathers those rows of ``index.x``, scores them exactly and
+        keeps the top k with a stable sort. Returns (scores [nq, k],
+        packed rows [nq, k]); invalid survivors stay +inf / -1, and with
+        ``K' < k`` (tiny corpus) the result is padded to k."""
+        kp = s1_rows.shape[1]
+        valid = np.isfinite(s1_scores) & (s1_rows >= 0)
+        rows = np.where(valid, s1_rows, 0)
         dev = self.device
         nk = min(k, kp)
         sc, sel = rerank_exact(self.index, torch.as_tensor(queries).to(dev),
                                torch.as_tensor(rows).to(dev),
                                torch.as_tensor(valid).to(dev), nk)
         sc = sc.cpu().numpy()
-        out_ids = np.take_along_axis(s1_ids, sel.cpu().numpy(), axis=1)
-        out_ids[~np.isfinite(sc)] = -1
+        out_rows = np.take_along_axis(s1_rows, sel.cpu().numpy(), axis=1)
+        out_rows[~np.isfinite(sc)] = -1
         if nk < k:                                   # tiny corpus: pad to k
             sc = np.pad(sc, ((0, 0), (0, k - nk)), constant_values=np.inf)
-            out_ids = np.pad(out_ids, ((0, 0), (0, k - nk)), constant_values=-1)
-        return sc, out_ids
+            out_rows = np.pad(out_rows, ((0, 0), (0, k - nk)), constant_values=-1)
+        return sc, out_rows
 
     # ----------------------------------------------------------- reporting
     @property

@@ -18,6 +18,7 @@ from repro.data import make_dataset
 from repro.serve import ExecutorConfig as RExCfg
 from repro.serve import HarmonyServer as RServer
 from repro_torch.core import SearchRequest, SegmentedIndex, TagIn
+from repro_torch.kernels import ref as kref
 from repro_torch.serve import ExecutorConfig, HarmonyServer
 from repro_torch.serve import engine as t_engine
 from test_executor import assert_matches_oracle
@@ -132,8 +133,10 @@ def test_own_compaction_at_full_probe(anns, backend):
 
 @pytest.mark.parametrize("backend", ["host", "spmd"])
 def test_int64_ids(anns, backend):
-    """An id beyond int32 comes back through the host merge, and a sealed
-    segment holding one through the host engine, on both backends."""
+    """An id beyond int32 comes back on both backends: on spmd through the
+    fused merge (which carries columns, not ids) and, once sealed, through
+    the segment's executor (which carries packed rows); on host through
+    the host engine and the host merge."""
     ds, cfg, q = anns
     r, t = pair(RSegmented.build(ds.x, cfg), backend)
     big = 3_000_000_000
@@ -151,13 +154,18 @@ def test_int64_ids(anns, backend):
             srv.upsert([big], vec)
         tr, rr = same(t, r, vec)
         assert int(tr.ids[0, 0]) == big and tr.scores[0, 0] == pytest.approx(0, abs=1e-5)
-        assert calls == [backend == "spmd"]        # the merge's own gate decides
+        assert calls == [backend == "spmd"]        # the backend decides, not the ids
         for srv in (r, t):
             srv.data.compact_inline()
+        kref.running_topk_ref.calls = 0
         tr, rr = same(t, r, np.concatenate([vec, q[:4]]))
         assert int(tr.ids[0, 0]) == big
         st = t._seg_states
-        assert [st[s].int32_ids for s in sorted(st)] == [True, False]
+        assert big in st[max(st)].segment.index.ids
+        spmd = backend == "spmd"
+        assert [bool(st[s].executors) for s in sorted(st)] == [spmd, spmd]
+        assert [st[s].corpus is not None for s in sorted(st)] == [not spmd, not spmd]
+        assert (kref.running_topk_ref.calls > 0) == spmd
     finally:
         t_engine.merge_topk = real
 
@@ -226,10 +234,31 @@ def test_elastic_replan_and_counters(anns):
             t.fail_node(n)
 
 
-def test_precision_override_and_requests(anns):
+def test_precision_override_and_requests(anns, monkeypatch):
+    """A per-batch precision override on spmd is served by the segment's
+    executor of that precision, built on first use (the reference serves
+    it on its host path); the host engine is never reached."""
     ds, cfg, q = anns
     r, t = pair(RSegmented.build(ds.x, cfg), "spmd", "fp32")
-    same(t, r, q, precision="int8")                # served on the host path
+
+    def no_host(*a, **kw):
+        raise AssertionError("the spmd backend reached the host engine")
+
+    monkeypatch.setattr(t_engine, "harmony_search", no_host)
+    monkeypatch.setattr(t_engine, "two_stage_search", no_host)
+    same(t, r, q, precision="int8")
+    ex = t._seg_states[0].executors
+    assert sorted(ex) == ["int8"] and ex["int8"].precision == "int8"
+    assert ex["int8"].cfg.rerank_factor == t.cfg.rerank_factor
+    int8_ex = ex["int8"]
+    same(t, r, q, precision="int8")
+    same(t, r, q)
+    assert sorted(ex) == ["fp32", "int8"] and ex["int8"] is int8_ex   # cached
+    r8, t8 = pair(RSegmented.build(ds.x, cfg), "spmd", "int8")
+    same(t8, r8, q, precision="fp32")
+    assert sorted(t8._seg_states[0].executors) == ["fp32"]
+    assert t8._seg_states[0].executors["fp32"].precision == "fp32"
+    monkeypatch.undo()
     same(t, r, q[:4], k=7, backend="host")
     rq = SearchRequest(vector=q[0], k=3, precision="int8")
     from repro.core import SearchRequest as RRequest
@@ -268,7 +297,7 @@ def test_stale_snapshot_never_rolls_back(anns):
         srv.adopt()
         assert srv.stats.placement_swaps == 1
     same(t, r, q)
-    assert t.executor is t._seg_states[0].executor
+    assert t.executor is t._seg_states[0].executors["fp32"]
     assert t.stats.generation_swaps == r.stats.generation_swaps == 1
 
 
@@ -313,4 +342,7 @@ def test_entry_points_need_cuda_by_default(monkeypatch, anns):
     with pytest.raises(RuntimeError, match="CUDA"):
         merge_topk(parts, 3, fused=True)
     merge_topk(parts, 3)                            # the host merge needs no device
-    assert HarmonyServer(plane, n_nodes=2, device="cpu").device.type == "cpu"
+    srv = HarmonyServer(plane, n_nodes=2, device="cpu")
+    assert srv.device.type == "cpu"
+    assert srv.backend == "spmd"                    # the card's path by default
+    assert all(st.corpus is None for st in srv._seg_states.values())

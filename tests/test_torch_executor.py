@@ -260,3 +260,25 @@ def test_int8_tiny_corpus_pads_to_k():
     assert res.ids.shape == (3, 10) and (res.ids[:, 7:] == -1).all()
     assert np.isinf(res.scores[:, 7:]).all()
     assert_matches_oracle(res, want)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "int8"])
+@pytest.mark.parametrize("mesh", [None, (2, 2)])
+def test_ids_beyond_int32(anns, precision, mesh):
+    """The ring carries packed row positions, so external ids beyond int32
+    come back exact: the same index under ids shifted past 2^31 gives the
+    same rows and scores, through the int8 re-rank too."""
+    _, ref, idx, q = anns
+    shift = 3_000_000_000
+    big = ivf_from_arrays(
+        dataclasses.asdict(ref.cfg),
+        dict(centers=ref.centers, x=ref.x, ids=ref.ids + shift,
+             cluster_of=ref.cluster_of, offsets=ref.offsets),
+        device="cpu")
+    dead = np.zeros(idx.nb, bool)
+    dead[::7] = True
+    got = _executor(big, mesh=mesh, precision=precision).search_batch(q[:40], dead_rows=dead)
+    want = _executor(idx, mesh=mesh, precision=precision).search_batch(q[:40], dead_rows=dead)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    np.testing.assert_array_equal(got.ids, np.where(want.ids >= 0, want.ids + shift, -1))
+    assert (got.ids >= shift).all()

@@ -333,15 +333,27 @@ def test_merge_topk_fused_bit_equal_to_reference(nq, k, n_parts, ties):
 
 
 def test_merge_topk_int32_gate_and_limits():
+    """Ids beyond int32 need no gate: the fused merge carries columns and
+    gathers the int64 ids afterwards, so it folds every part on the kernel
+    and gives what it gives on small ids, ties included."""
     rng = np.random.default_rng(11)
     parts = _parts(rng, 6, 10, 3, ties=False, big_ids=True)
     kref.running_topk_ref.calls = 0
     gs, gi = merge_topk(parts, 10, fused=True, device="cpu")
-    assert kref.running_topk_ref.calls == 0        # int64 ids: the host merge
-    ws, wi = r_merge(parts, 10, fused=True)
+    assert kref.running_topk_ref.calls == 3        # int64 ids: still one fold a part
+    ws, wi = r_merge(parts, 10, fused=True)        # the reference's host merge
     np.testing.assert_array_equal(gs, ws)
     np.testing.assert_array_equal(gi, wi)
     assert (gi >= 3_000_000_000).any()
+    tied = _parts(np.random.default_rng(12), 6, 10, 3, ties=True, big_ids=True)
+    small = [(s, np.where(i >= 3_000_000_000, i - 3_000_000_000 + 60_000, i))
+             for s, i in tied]
+    gs, gi = merge_topk(tied, 10, fused=True, device="cpu")
+    ss, si = merge_topk(small, 10, fused=True, device="cpu")
+    np.testing.assert_array_equal(gs, ss)
+    np.testing.assert_array_equal(np.where(gi >= 3_000_000_000,
+                                           gi - 3_000_000_000 + 60_000, gi), si)
+    kref.running_topk_ref.calls = 0
     # K beyond the top-K kernel's limit raises before any launch, on any device
     big = [(np.zeros((2, 257), np.float32), np.zeros((2, 257), np.int64))]
     with pytest.raises(ValueError, match="256"):
