@@ -57,7 +57,32 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
    launched) and an int64 id (first at distance 0, on the card: in the
    delta, and once sealed). The top-K kernel is timed at the merge's
    shapes and at K = 80, 256 (``time_merge_shapes``).
-6. Print the ``{"kernels": [...]}`` line, then ``{"ok": true, ...}`` last.
+6. Large k (``serve_engine_large_k``): on the plane phase 5 left, an fp32
+   server at k = 300 and an int8 server at k = 100 (K' = 400), each
+   against ``engine_oracle``, every K > 256 launch on the top-K kernel's
+   route 2 (``running_topk_update_large_k``).
+7. bf16 rows (``serve_bf16``): an executor with ``x_dtype="bfloat16"`` on
+   the 1×1 mesh against an exact oracle over the bf16-rounded corpus; it
+   must hold under 0.6× the fp32 executor's device memory.
+8. Filtered and hybrid (``serve_engine_filtered``): the index with seeded
+   metadata (``u`` uniform, ~8-word texts) and a delta burst, 128-query
+   batches under ``NumRange("u", 0, 0.5)`` and ``NumRange("u", 0, 0.02)``
+   (nprobe widened 4×), each also with ``hybrid_text``, against an oracle
+   built from the definitions (``filtered_oracle``, ``bm25_topk_plain``,
+   ``rrf_plain``); merge launches = parts, each bucket built once.
+9. Host tier (``serve_engine_tiered``): the segment demoted by
+   prepare / swap / adopt, three batches (the second prefetched, the
+   third the second again without) equal to the device tier's bit for
+   bit, then promoted back.
+
+The kernel checks of phase 2 also hold the top-K kernel's route 2 (K in
+{320, 512, 1024, 4096} × C in {256, 4096, 8192}, the merge at k = 300) bit
+for bit, and the distance kernel's bf16-row route at the f32 route's rule;
+phase 2's timing covers both routes. Each of phases 3–9 resets the launch
+counts before it and reads them after it.
+
+10. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+    then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -69,6 +94,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
@@ -288,7 +315,14 @@ def check_kernels(dev):
     branch_shapes += [(m, c, k) for k in (80, 128, 256) for c in (80, 256, 4096)
                       for m in ((130, 3) if c == 4096 else (130,))]
     branch_shapes += [(m, k, k) for m in (1, 8, 32, 128, 160) for k in (10, 20)]
-    for m, c, k in branch_shapes:
+    # route 2 (K > 256: one CTA a row, the list in shared memory, C in
+    # windows of 2048): the int8 ring at k = 100 (K' = 400) and beyond, up
+    # to K = 4096 (int8 at k = 1024); C past one window; the served merge
+    # at k = 300 (C = K = 300)
+    big_shapes = [(130, c, k) for k in (320, 512, 1024, 4096) for c in (256, 4096, 8192)]
+    big_shapes += [(m, 300, 300) for m in (1, 128)] + [(1, 8192, 4096), (128, 256, 400)]
+    n_big = 0
+    for m, c, k in branch_shapes + big_shapes:
         for kind in TOPK_KINDS:
             a = [t(v) for v in mk_topk_branch(rng, m, c, k, kind)]
             for ids in (a[1], a[1][0].expand(m, c)):
@@ -298,7 +332,44 @@ def check_kernels(dev):
                 assert torch.equal(gs, ws) and torch.equal(gi, wi), \
                     f"running_topk differs at {(m, c, k, kind)}, ids stride {ids.stride(0)}"
             n_checked += 1
-    log(phase="kernels_checked", cases=n_checked, max_abs_err=errs)
+            n_big += k > topk_update.WARP_MAX_K
+    errs["running_topk_update_large_k"] = 0.0
+    # bf16 rows at the ring's shapes (M = QG = 128 / 64 at Db = 128 / 64,
+    # N = 256), with and without a dead tile, then ragged tiles, chunked and
+    # unaligned contractions (the element-wise staging path); held at the
+    # f32 route's rule, and counted where they are bit-equal too
+    bf16_cases = [(m, 256, d, tiles, 128, dead) for m, d in ((128, 128), (64, 64))
+                  for tiles in ((128, 128), (32, 64)) for dead in (True, False)]
+    bf16_cases += [(m, 256, d, (128, 128), 128, True) for m in ring_ms for d in (32, 64, 128)]
+    bf16_cases += [(130, 257, 96, (32, 64), 32, True), (130, 257, 96, (4, 100), 64, False),
+                   (64, 256, 30, (128, 128), 128, True), (64, 256, 60, (4, 100), 20, True)]
+    errs["partial_distance_update_bf16"] = 0.0
+    bit_equal = 0
+    for m, n, d, tiles, tk, dead in bf16_cases:
+        for metric in ("l2", "ip"):
+            x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(
+                dev).to(torch.bfloat16)
+            xf = x.float()
+            q = rng.normal(size=(m, d)).astype(np.float32)
+            acc = rng.uniform(0, 5, size=(m, n)).astype(np.float32)
+            acc[rng.random((m, n)) < 0.3] = np.inf
+            if dead:
+                acc[:, 128:256] = np.inf
+            tau = rng.uniform(d * 0.5, d * 3.0, size=(m,)).astype(np.float32)
+            a = [x, (xf * xf).sum(1), t(q), t((q ** 2).sum(1)), t(acc), t(tau)]
+            got, skip = distance.partial_distance_update(
+                *a, metric=metric, tile_m=tiles[0], tile_n=tiles[1], tile_k=tk)
+            want = ref.partial_distance_update_ref(*a, metric=metric, tile_k=tk)
+            torch.cuda.synchronize()
+            errs["partial_distance_update_bf16"] = max(
+                errs["partial_distance_update_bf16"], dist_err(got, want, a[5]))
+            assert torch.equal(skip, ops._tile_skip_map(a[4], *tiles)), \
+                f"bf16 distance: skip map differs at {(m, n, d, tiles, tk)}"
+            bit_equal += bool(torch.equal(got, want))
+            n_checked += 1
+    log(phase="kernels_checked", cases=n_checked, large_k_topk_cases=n_big,
+        bf16_distance_cases=2 * len(bf16_cases), bf16_bit_equal=bit_equal,
+        max_abs_err=errs)
     return errs, n_checked
 
 
@@ -464,6 +535,50 @@ def time_kernels(dev, smi):
         run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
         row = time_topk(rng, dev, s, run_s, label, smi)
         timed.setdefault("running_topk_update", row)
+    # the bf16-row route at the ring's shapes; yardstick torch.addmm on the
+    # rows already widened to f32
+    for (m, d, label) in ((128, 128, "mesh1x1_qb128_bf16"), (64, 64, "mesh2x2_qb128_bf16")):
+        xb = torch.from_numpy(rng.normal(size=(256, d)).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        xw = xb.float()
+        q = rng.normal(size=(m, d)).astype(np.float32)
+        a = [xb, (xw * xw).sum(1), t(q), t((q ** 2).sum(1)),
+             *acc_tau(m, 256, d * 0.5, d * 3.0)]
+        alive_tiles = int((ops._tile_skip_map(a[4], 128, 128) == 0).sum())
+        base = a[4] + a[3][:, None] + a[1][None, :]
+        live = revive(a[4])
+        (ms, call), (plain, plain_call), (lib, lib_call), (ms_live, _) = (
+            time_ms(lambda: distance.partial_distance_update(*a)),
+            time_ms(lambda: ref.partial_distance_update_ref(*a)),
+            time_ms(lambda: torch.addmm(base, a[2], xw.T, alpha=-2)),
+            time_ms(lambda: distance.partial_distance_update(*a[:4], live, a[5])))
+        nbytes = 2 * 256 * d + 4 * (256 + m * d + m + 2 * m * 256 + m) + 4 * 2
+        flops = 2 * min(m, 128) * 128 * d * alive_tiles + 4 * m * 256
+        b, by = bound_ms(nbytes, flops)
+        row = dict(kernel="partial_distance_update_bf16", shape=label, M=m, N=256, Db=d,
+                   ctas=distance.ctas(m, 256), kernel_ms=ms,
+                   kernel_ms_all_alive=ms_live, plain_ms=plain, library_ms=lib,
+                   library_call="torch.addmm on the rows widened to f32",
+                   bound_ms=b, bound_by=by, kernel_call_ms=call,
+                   plain_call_ms=plain_call, library_call_ms=lib_call, card=smi)
+        log(**row)
+        timed.setdefault("partial_distance_update_bf16", row)
+    # route 2 of the top-K kernel (K > 256) at the served shapes: the int8
+    # ring at k = 100 (K' = 400), the fp32 ring at k = 300, the merge of a
+    # k = 300 batch (C = K = 300, an all-+inf list first), and K = 4096
+    for (m, c, k, label, first) in ((128, 256, 400, "ring_int8_k100", False),
+                                    (128, 256, 300, "ring_fp32_k300", False),
+                                    (128, 300, 300, "merge_first_k300", True),
+                                    (128, 4096, 4096, "K4096_C4096", False)):
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        if first:
+            s = np.sort(s, axis=1)
+            run_s = np.full((m, k), np.inf, np.float32)
+        else:
+            run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
+        row = time_topk(rng, dev, s, run_s, label, smi, route=2)
+        timed.setdefault("running_topk_update_large_k", row)
     return timed
 
 
@@ -492,8 +607,10 @@ def time_topk(rng, dev, s, run_s, label, smi, **extra):
         time_ms(lambda: ref.running_topk_ref(s, ids_row, run_s, run_i, k=k)),
         time_ms(lambda: torch.topk(cat, k, dim=1, largest=False)))
     nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
-    b, by = bound_ms(nbytes, m * k * c)
-    row = dict(kernel="running_topk_update", shape=label, M=m, C=c, K=k, ctas=m, **extra,
+    # operations: each list entry and candidate compared at least once
+    b, by = bound_ms(nbytes, m * (k + c))
+    name = "running_topk_update" if k <= topk_update.WARP_MAX_K else "running_topk_update_large_k"
+    row = dict(kernel=name, shape=label, M=m, C=c, K=k, ctas=m, **extra,
                kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
                kernel_call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
                card=smi)
@@ -511,7 +628,7 @@ def survivor_split(ex, queries, k):
 
     from repro_torch.kernels import ops, topk_update
 
-    hist = torch.zeros(topk_update.MAX_C + 1, dtype=torch.int64, device=ex.device)
+    hist = torch.zeros(ex.cfg.chunk + 1, dtype=torch.int64, device=ex.device)
     thr_inf = torch.zeros((), dtype=torch.int64, device=ex.device)
     wrapped = ops.running_topk_update
 
@@ -779,7 +896,6 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
     srv8 = HarmonyServer(data, n_nodes=4, backend="spmd", precision="int8",
                          executor_cfg=ExecutorConfig())
     setup8 = time.perf_counter() - t0
-    live_ids, live_x = data.live_vectors()
     res8_by_k, res32_by_k = {}, {}
     for k in (10, 20):
         before = ops.launch_counts()
@@ -787,17 +903,8 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
             res8 = srv8.search_batch(q128, k=k)
         after = ops.launch_counts()
         res32 = srv.search_batch(q128, k=k)
-        ids = res8.ids
-        assert (ids >= 0).all(), "int8: a row came back short of k"
-        assert all(len(set(r.tolist())) == k for r in ids), "int8: repeated id"
-        pos = np.searchsorted(live_ids, ids)
-        assert np.array_equal(live_ids[np.clip(pos, 0, live_ids.size - 1)], ids), \
-            "int8: an id that is not live"
-        xv = torch.as_tensor(live_x[pos]).to(dev).double()
-        qd = torch.as_tensor(q128).to(dev).double()[:, None, :]
-        exact = ((xv - qd) ** 2).sum(2).cpu().numpy()
-        np.testing.assert_allclose(res8.scores, exact, rtol=1e-3, atol=1e-3)
-        recall = recall_at_k(ids, res32.ids)
+        check_int8_rows(dev, data, q128, res8, k)
+        recall = recall_at_k(res8.ids, res32.ids)
         assert recall >= 0.98, f"int8 server recall@{k} vs fp32 {recall}"
         res8_by_k[k], res32_by_k[k] = res8, res32
         log(phase="serve_engine_int8", nq=128, k=k, rerank_k=k * 4, setup_s=setup8,
@@ -823,13 +930,9 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
             launches={n: after[n] - before[n] for n in after})
     assert all(st.corpus is None for s_ in (srv, srv8) for st in s_._seg_states.values()), \
         "the spmd backend built a host-engine layout"
-    counts = ops.launch_counts()
-    for name in ("partial_distance_update", "int8_partial_distance_update",
-                 "running_topk_update"):
-        assert counts[name] > 0, f"serve_engine: {name} never launched"
-    for name in ("partial_distance_update_ref", "int8_partial_distance_update_ref",
-                 "running_topk_ref"):
-        assert counts[name] == 0, f"serve_engine: the plain {name} ran"
+    assert_path_on_kernels(ops.launch_counts(), (
+        "partial_distance_update", "int8_partial_distance_update", "running_topk_update"),
+        "serve_engine")
     del srv8
     torch.cuda.empty_cache()
 
@@ -872,7 +975,424 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
     assert counts["running_topk_ref"] == 0 and counts["partial_distance_update_ref"] == 0
     del srv
     torch.cuda.empty_cache()
+    return counts, data
+
+
+def assert_path_on_kernels(counts, kernels, what):
+    """Every kernel of ``kernels`` launched, and no plain version ran."""
+    for name in kernels:
+        assert counts[name] > 0, f"{what}: {name} never launched"
+    for name in ("partial_distance_update_ref", "int8_partial_distance_update_ref",
+                 "running_topk_ref"):
+        assert counts[name] == 0, f"{what}: the plain {name} ran"
+
+
+def check_int8_rows(dev, data, q, res, k):
+    """An int8 served batch: k live distinct ids a row, each scored with
+    its exact fp32 distance (float64 on the card)."""
+    import numpy as np
+    import torch
+
+    live_ids, live_x = data.live_vectors()
+    ids = res.ids
+    assert (ids >= 0).all(), "int8: a row came back short of k"
+    assert all(len(set(r.tolist())) == k for r in ids), "int8: repeated id"
+    pos = np.searchsorted(live_ids, ids)
+    assert np.array_equal(live_ids[np.clip(pos, 0, live_ids.size - 1)], ids), \
+        "int8: an id that is not live"
+    xv = torch.as_tensor(live_x[pos]).to(dev).double()
+    qd = torch.as_tensor(q).to(dev).double()[:, None, :]
+    exact = ((xv - qd) ** 2).sum(2).cpu().numpy()
+    np.testing.assert_allclose(res.scores, exact, rtol=1e-3, atol=1e-3)
+
+
+def serve_large_k(dev, smi, data, q128):
+    """Phase 6: k above 256 on the served path, the top-K kernel's route 2:
+    an fp32 server at k = 300 (ring K = 300, merge C = K = 300) and an
+    int8 server at k = 100 (ring K' = 400), on the plane ``serve_engine``
+    left (three sealed segments and no delta). Returns the path's counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ExecutorConfig, HarmonyServer
+
+    n_parts = data.n_segments + (data.delta_len > 0)
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig())
+    srv8 = HarmonyServer(data, n_nodes=4, backend="spmd", precision="int8",
+                         executor_cfg=ExecutorConfig())
+    ops.reset_launch_counts()
+    for srv_, prec, k in ((srv, "fp32", 300), (srv8, "int8", 100)):
+        # the first batch also builds the server's executors
+        first_ms = srv_.search_batch(q128, k=k).stats["wall_s"] * 1e3
+        before = ops.launch_counts()
+        with RingTopkLaunches() as ring:
+            res = srv_.search_batch(q128, k=k)
+        after = ops.launch_counts()
+        launches = {n: after[n] - before[n] for n in after}
+        merge = launches["running_topk_update"] - ring.ring
+        want_s, want_i = engine_oracle(dev, data.snapshot(), q128, k)
+        if prec == "fp32":
+            assert_topk_matches(res.scores, res.ids, want_s, want_i, f"large k fp32 k={k}")
+            recall = recall_at_k(res.ids, want_i)
+            # the ring (K = 300) and the merge (K = C = 300) are all route 2
+            assert launches["running_topk_update_large_k"] == launches["running_topk_update"], launches
+        else:
+            check_int8_rows(dev, data, q128, res, k)
+            recall = recall_at_k(res.ids, want_i)
+            assert recall >= 0.98, f"int8 k={k} recall@{k} vs the oracle {recall}"
+            # the ring's K' = 400 is route 2, the merge's K = 100 route 1
+            assert launches["running_topk_update_large_k"] == ring.ring
+        assert merge == n_parts, f"large k {prec}: {merge} merge launches, {n_parts} parts"
+        log(phase="serve_engine_large_k", precision=prec, nq=q128.shape[0], k=k,
+            ring_k=k if prec == "fp32" else 4 * k, wall_ms=res.stats["wall_s"] * 1e3,
+            first_batch_wall_ms=first_ms,
+            recall_vs_oracle=recall, parts=n_parts, ring_topk_launches=ring.ring,
+            merge_topk_launches=merge, launches=launches, card=smi)
+    counts = ops.launch_counts()
+    assert_path_on_kernels(counts, ("partial_distance_update", "int8_partial_distance_update",
+                                    "running_topk_update", "running_topk_update_large_k"),
+                           "serve_engine_large_k")
+    del srv, srv8
+    torch.cuda.empty_cache()
     return counts
+
+
+def serve_bf16(dev, smi, index, q128, fp32_mb):
+    """Phase 7: the executor over bf16 rows on the 1×1 mesh; its 128-query
+    batch against an exact oracle over the bf16-rounded corpus, and its
+    resident memory against the fp32 executor's (``fp32_mb``). Returns
+    the path's counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import search_oracle
+    from repro_torch.data import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ExecutorConfig, SpmdExecutor
+
+    mb0 = torch.cuda.memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    ex = SpmdExecutor(index, ExecutorConfig(d_blocks=1, x_dtype="bfloat16"), mesh=(1, 1))
+    setup_s = time.perf_counter() - t0
+    bf16_mb = torch.cuda.memory_allocated() / 2 ** 20 - mb0
+    ops.reset_launch_counts()
+    res = ex.search_batch(q128)
+    res = ex.search_batch(q128)                     # the second, warm batch
+    counts = ops.launch_counts()
+    rounded = dataclasses.replace(index, x=index.x.to(torch.bfloat16).float())
+    want = search_oracle(rounded, q128)
+    assert_topk_matches(res.scores, res.ids, want.scores, want.ids, "bf16 executor")
+    f32 = search_oracle(index, q128)
+    assert_path_on_kernels(counts, ("partial_distance_update_bf16", "running_topk_update"),
+                           "serve_bf16")
+    assert counts["partial_distance_update_bf16"] == counts["partial_distance_update"]
+    assert bf16_mb < 0.6 * fp32_mb, f"bf16 executor holds {bf16_mb} MB, fp32 {fp32_mb}"
+    log(phase="serve_bf16", mesh="1x1", nq=q128.shape[0], wall_ms=res.stats["wall_s"] * 1e3,
+        setup_s=setup_s, executor_resident_mb=bf16_mb, fp32_executor_resident_mb=fp32_mb,
+        recall_vs_rounded_oracle=recall_at_k(res.ids, want.ids),
+        recall_vs_fp32_oracle=recall_at_k(res.ids, f32.ids),
+        tile_skip_frac=res.stats["tile_skipped"] / max(res.stats["tile_total"], 1),
+        counts=counts, card=smi)
+    del ex, rounded
+    torch.cuda.empty_cache()
+    return counts
+
+
+VOCAB = 4000          # the texts' seeded vocabulary: w0 .. w3999
+
+
+def make_words(rng, n):
+    """Word ids [n, 10] of ~8 words a row (6 to 10; -1 past a row's end)
+    from the seeded vocabulary, and the texts they spell."""
+    lens = rng.integers(6, 11, size=n)
+    words = rng.integers(0, VOCAB, size=(n, 10))
+    words[np.arange(10)[None, :] >= lens[:, None]] = -1
+    vocab = [f"w{i}" for i in range(VOCAB)]
+    texts = [" ".join([vocab[w] for w in row[:ln]])
+             for row, ln in zip(words.tolist(), lens.tolist())]
+    return words, texts
+
+
+def bm25_topk_plain(words, terms, excluded, k, k1=1.5, b=0.75):
+    """BM25 top-k rows of one row-aligned word-id table, in float64 from
+    the word ids (no tokenizer, no postings): (scores, rows), the rows of
+    equal scores in ascending order, excluded rows left out."""
+    lens = (words >= 0).sum(1).astype(np.float64)
+    n = words.shape[0]
+    norm = 1.0 - b + b * lens / lens.mean()
+    sc = np.zeros(n)
+    for t in terms:
+        tf = (words == t).sum(1).astype(np.float64)
+        df = int((tf > 0).sum())
+        if df == 0:
+            continue
+        idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+        sc += idf * tf * (k1 + 1.0) / (tf + k1 * norm)
+    sc[excluded] = 0.0
+    rows = np.nonzero(sc > 0)[0]
+    rows = rows[np.argsort(-sc[rows], kind="stable")[:k]]
+    return sc[rows], rows
+
+
+def rrf_plain(lists, k, k_rrf=60.0):
+    """Reciprocal-rank fusion of best-first id lists ([NQ, K_t], -1 pad):
+    ascending negated scores [NQ, k] and ids, ties to the lower id."""
+    nq = lists[0].shape[0]
+    out_s = np.full((nq, k), np.inf, np.float32)
+    out_i = np.full((nq, k), -1, np.int64)
+    for r in range(nq):
+        fused = {}
+        for ids in lists:
+            for rank, d in enumerate(ids[r].tolist()):
+                if d >= 0:
+                    fused[d] = fused.get(d, 0.0) + 1.0 / (k_rrf + rank)
+        top = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+        for j, (d, v) in enumerate(top):
+            out_i[r, j], out_s[r, j] = d, -v
+    return out_s, out_i
+
+
+def filtered_oracle(dev, index, u, dead, delta, q, k, lo, hi):
+    """The filtered served batch's answer, built from the definitions and
+    not from the server's code: the rows with ``lo <= u <= hi`` (and
+    live) are allowed; probe selection ranks the clusters holding an
+    allowed row (nprobe widened by min(cap, threshold / selectivity) below
+    the threshold; slots past the live clusters repeat the best one); an
+    exact float64 scan of those clusters' allowed rows on the card, and of
+    the allowed live delta rows; a stable merge. Returns (scores, ids,
+    nprobe, probes)."""
+    import torch
+
+    cfg = index.cfg
+    excluded = ~((u >= lo) & (u <= hi)) | dead
+    sel = float((~excluded).mean())
+    w = cfg.nprobe
+    if 0.0 < sel < cfg.filter_widen_threshold:
+        w = min(index.nlist, int(np.ceil(
+            cfg.nprobe * min(max(1.0, cfg.filter_widen_cap), cfg.filter_widen_threshold / sel))))
+    live_cluster = np.bincount(index.cluster_of[~excluded], minlength=index.nlist) > 0
+    cen = index.centers
+    d = (np.sum(q * q, axis=1)[:, None] - 2.0 * (q @ cen.T)
+         + np.sum(cen * cen, axis=1)[None, :])
+    d = np.where(live_cluster[None, :], d, np.inf)
+    probes = np.argsort(d, axis=1)[:, :w]
+    bad = ~np.isfinite(np.take_along_axis(d, probes, axis=1))
+    probes = np.where(bad, probes[:, :1], probes)
+    nq = q.shape[0]
+    parts_s, parts_i = [], []
+    x64 = index.x.double()
+    xn = (x64 * x64).sum(1)
+    allowed_t = torch.as_tensor(~excluded, device=dev)
+    cl = torch.as_tensor(index.cluster_of.astype(np.int64), device=dev)
+    seg_s = np.full((nq, k), np.inf)
+    seg_i = np.full((nq, k), -1, np.int64)
+    for a in range(0, nq, 32):
+        qd = torch.as_tensor(q[a:a + 32]).to(dev).double()
+        member = np.zeros((qd.shape[0], index.nlist), bool)
+        member[np.arange(qd.shape[0])[:, None], probes[a:a + 32]] = True
+        mask = torch.as_tensor(member, device=dev)[:, cl] & allowed_t[None, :]
+        dist = (qd * qd).sum(1)[:, None] - 2.0 * (qd @ x64.T) + xn[None, :]
+        dist = torch.where(mask, dist, torch.inf)
+        sd, pos = torch.sort(dist, dim=1, stable=True)
+        seg_s[a:a + 32] = sd[:, :k].cpu().numpy()
+        seg_i[a:a + 32] = index.ids[pos[:, :k].cpu().numpy()]
+    parts_s.append(seg_s)
+    parts_i.append(seg_i)
+    d_ids, d_x, d_ok = delta
+    rows = np.nonzero(d_ok)[0]
+    if rows.size:
+        xd = torch.as_tensor(d_x[rows]).to(dev).double()
+        qd = torch.as_tensor(q).to(dev).double()
+        dist = (qd * qd).sum(1)[:, None] - 2.0 * (qd @ xd.T) + (xd * xd).sum(1)[None, :]
+        sd, pos = torch.sort(dist, dim=1, stable=True)
+        kk = min(k, rows.size)
+        ds_ = np.full((nq, k), np.inf)
+        di = np.full((nq, k), -1, np.int64)
+        ds_[:, :kk] = sd[:, :kk].cpu().numpy()
+        di[:, :kk] = d_ids[rows][pos[:, :kk].cpu().numpy()]
+        parts_s.append(ds_)
+        parts_i.append(di)
+    cat_s, cat_i = np.concatenate(parts_s, 1), np.concatenate(parts_i, 1)
+    order = np.argsort(cat_s, axis=1, kind="stable")[:, :k]
+    want_s = np.take_along_axis(cat_s, order, axis=1).astype(np.float32)
+    want_i = np.take_along_axis(cat_i, order, axis=1)
+    want_i[~np.isfinite(want_s)] = -1
+    return want_s, want_i, w, probes
+
+
+def serve_filtered_and_tiered(dev, smi, index, ds, q_all):
+    """Phases 8 and 9 on one server. The index gets per-row metadata from
+    a seed (``u`` uniform in [0, 1), a text of ~8 words of a 4000-word
+    vocabulary), and a delta burst with metadata. Phase 8 serves 128-query
+    batches under ``NumRange("u", 0, 0.5)`` (no widening) and
+    ``NumRange("u", 0, 0.02)`` (nprobe widened 4×), each without and with
+    ``hybrid_text``, against ``filtered_oracle`` (hybrid: ``rrf_plain``
+    over it and ``bm25_topk_plain``). Phase 9 demotes the segment to the
+    host tier by prepare / swap / adopt, serves three batches (the second
+    prefetched, the third the second again without) bit-identical to the
+    device tier, and promotes it back.
+    Returns the counts of each phase's path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import NumRange, SegmentedIndex, segment_bm25
+    from repro_torch.core.index import metadata_from
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ExecutorConfig, HarmonyServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)
+    nb = index.nb
+    u = rng.uniform(0.0, 1.0, size=nb).astype(np.float32)
+    words, texts = make_words(rng, nb)
+    order = index.ids                                 # packed row -> input row
+    idx_m = dataclasses.replace(index, meta=metadata_from(
+        dict(nums={"u": u[order]}, texts=[texts[i] for i in order])))
+    t_texts = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    segment_bm25(idx_m)
+    bm25_s = time.perf_counter() - t0
+    data = SegmentedIndex.from_static(idx_m)
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig())
+    # a delta burst with metadata: 2000 rows near corpus rows, 500 deletes
+    n_new = 2000
+    new_ids = np.arange(10 * nb, 10 * nb + n_new)
+    pick = rng.choice(nb, size=n_new)
+    new_x = (ds.x[pick] + 0.05 * rng.standard_normal((n_new, 128))).astype(np.float32)
+    new_u = rng.uniform(0.0, 1.0, size=n_new).astype(np.float32)
+    new_words, new_texts = make_words(rng, n_new)
+    srv.upsert(new_ids, new_x, meta={"u": new_u, "text": new_texts})
+    srv.delete(rng.choice(nb, size=500, replace=False))
+    log(phase="serve_engine_filtered_setup", seconds=time.perf_counter() - t_phase,
+        texts_s=t_texts, bm25_build_s=bm25_s, delta_rows=n_new, card=smi)
+
+    snap = data.snapshot()
+    dead = snap.dead_rows[0]
+    delta_ok = snap.delta_live.copy()
+    ex = None
+    q128 = q_all[41:169]
+    words_packed = words[order]
+    ops.reset_launch_counts()
+    for lo, hi in ((0.0, 0.5), (0.0, 0.02)):
+        flt = NumRange("u", lo, hi)
+        want_s, want_i, w, probes = filtered_oracle(
+            dev, idx_m, u[order], dead,
+            (snap.delta_ids, snap.delta_x, delta_ok & (new_u >= lo) & (new_u <= hi)),
+            q128, 10, lo, hi)
+        for hybrid in (False, True):
+            text = None
+            if hybrid:
+                terms = [int(t) for t in rng.choice(VOCAB, size=2, replace=False)]
+                text = " ".join(f"w{t}" for t in terms)
+            compiles0 = ex.compiles if ex is not None else 0
+            keys0 = set(ex.trace_counts) if ex is not None else set()
+            before = ops.launch_counts()
+            with RingTopkLaunches() as ring:
+                res = srv.search_batch(q128, flt=flt, hybrid_text=text)
+            after = ops.launch_counts()
+            ex = srv._seg_states[0].executors["fp32"]
+            launches = {n: after[n] - before[n] for n in after}
+            merge = launches["running_topk_update"] - ring.ring
+            assert merge == 2, f"filtered: {merge} merge launches for 2 parts"
+            assert all(n == 1 for n in ex.trace_counts.values()), "a bucket built twice"
+            new_keys = sorted(set(ex.trace_counts) - keys0)
+            if hybrid:
+                excluded = ~((u[order] >= lo) & (u[order] <= hi)) | dead
+                s_sc, s_rows = bm25_topk_plain(words_packed, terms, excluded, 10)
+                d_ok = delta_ok & (new_u >= lo) & (new_u <= hi)
+                d_sc, d_rows = bm25_topk_plain(new_words, terms, ~d_ok, 10)
+                cands = sorted([(-v, int(i)) for v, i in zip(s_sc, idx_m.ids[s_rows])]
+                               + [(-v, int(i)) for v, i in zip(d_sc, new_ids[d_rows])])
+                lex = np.array([i for _, i in cands[:10]], np.int64)
+                lists = [want_i] + ([np.broadcast_to(lex, (128, lex.size))] if lex.size else [])
+                f_s, f_i = rrf_plain(lists, 10)
+                assert res.stats["fused"]
+                assert np.array_equal(res.ids, f_i), "hybrid: fused ids differ from the oracle"
+                np.testing.assert_allclose(res.scores, f_s, rtol=1e-6)
+            else:
+                assert_topk_matches(res.scores, res.ids, want_s, want_i,
+                                    f"filtered u<={hi}")
+                served_ids = res.ids[res.ids >= 0]
+                ok_ids = np.concatenate([idx_m.ids[(u[order] >= lo) & (u[order] <= hi) & ~dead],
+                                         snap.delta_ids[delta_ok & (new_u >= lo) & (new_u <= hi)]])
+                assert np.isin(served_ids, ok_ids).all(), "filtered: a disallowed id came back"
+            log(phase="serve_engine_filtered", filter=f"NumRange(u, {lo}, {hi})",
+                selectivity=float(((u >= lo) & (u <= hi)).mean()), hybrid=text,
+                nq=128, widened_nprobe=w, buckets_built=new_keys, compiles=ex.compiles,
+                compiled_now=ex.compiles - compiles0,
+                wall_ms=res.stats["wall_s"] * 1e3, parts=2, ring_topk_launches=ring.ring,
+                merge_topk_launches=merge, launches=launches, card=smi)
+            if hi == 0.02:
+                # widened by the cap, 4×: nprobe 16 → 64 on the SIFT1M-shaped cell
+                wide = min(idx_m.nlist, 4 * idx_m.cfg.nprobe)
+                assert all(key[3] == w for key in new_keys) and w == wide, (w, new_keys)
+    filtered_counts = ops.launch_counts()
+    assert_path_on_kernels(filtered_counts, ("partial_distance_update", "running_topk_update"),
+                           "serve_engine_filtered")
+
+    # ---- phase 9: the host tier, by prepare / swap / adopt
+    qa, qb = q_all[:128], q_all[169:297]
+    hot_a, hot_b = srv.search_batch(qa), srv.search_batch(qb)
+    del ex                        # the server's reference is the only one left
+    ops.reset_launch_counts()
+    mb0 = torch.cuda.memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    srv.prepare_placement({0: "host"})
+    data.set_tiers({0: "host"})
+    srv.adopt()
+    demote_s = time.perf_counter() - t0
+    cold_ex = srv._seg_states[0].executors["fp32"]
+    assert cold_ex.tier == "host" and cold_ex._resident is None
+    host_mb = torch.cuda.memory_allocated() / 2 ** 20 - mb0
+    # batch b twice: with the prefetch, then without, to set its wall
+    # against the same batch's upload done in the call
+    for tag, q, hot, prefetch in (("a", qa, hot_a, False), ("b", qb, hot_b, True),
+                                  ("b_again", qb, hot_b, False)):
+        if prefetch:
+            t1 = time.perf_counter()
+            srv.prefetch_batch(q)
+            prefetch_ms = (time.perf_counter() - t1) * 1e3
+        up0 = cold_ex.upload_ms
+        res = srv.search_batch(q)
+        assert res.stats["cold_segments"] == 1 and res.stats["bytes_streamed"] > 0
+        assert np.array_equal(res.ids, hot.ids) and np.array_equal(res.scores, hot.scores), \
+            f"host tier batch {tag} differs from the device tier"
+        assert res.stats["prefetch_hits"] == int(prefetch), f"batch {tag}: prefetch hits"
+        log(phase="serve_engine_tiered", batch=tag, nq=128, prefetched=prefetch,
+            prefetch_ms=prefetch_ms if prefetch else None,
+            wall_ms=res.stats["wall_s"] * 1e3, device_tier_wall_ms=hot.stats["wall_s"] * 1e3,
+            bytes_streamed=res.stats["bytes_streamed"],
+            upload_ms_side_stream=cold_ex.upload_ms - up0,
+            prefetch_hits=res.stats["prefetch_hits"], demote_s=demote_s,
+            device_mb_change_on_demote=host_mb,
+            candidate_buffers_mb=sum(t.nbytes for sets in cold_ex._cand_pool.values()
+                                     for b in sets for t in b.dev.values()) / 2 ** 20,
+            card=smi)
+    tiered_counts = ops.launch_counts()
+    assert_path_on_kernels(tiered_counts, ("partial_distance_update", "running_topk_update"),
+                           "serve_engine_tiered")
+    cold_summary = cold_ex.stats_summary()
+    del cold_ex                   # promoted, the host tier's state goes with the swap
+    t0 = time.perf_counter()
+    srv.prepare_placement({0: "device"})
+    data.set_tiers({0: "device"})
+    srv.adopt()
+    promote_s = time.perf_counter() - t0
+    promote_mb = torch.cuda.memory_allocated() / 2 ** 20 - mb0
+    back = srv.search_batch(qa)
+    assert back.stats["cold_segments"] == 0
+    assert np.array_equal(back.ids, hot_a.ids) and np.array_equal(back.scores, hot_a.scores)
+    log(phase="serve_engine_tiered_promote", promote_s=promote_s,
+        device_mb_change_since_demote=promote_mb,
+        wall_ms=back.stats["wall_s"] * 1e3, summary={k: v for k, v in srv.stats.summary().items() if v},
+        executor=cold_summary, card=smi)
+    del srv, data
+    torch.cuda.empty_cache()
+    return filtered_counts, tiered_counts
 
 
 def main() -> int:
@@ -971,12 +1491,15 @@ def main() -> int:
             top_device_us=dict(top))
 
     served = {"partial_distance_update": 0, "int8_partial_distance_update": 0,
-              "running_topk_update": 0}
+              "running_topk_update": 0, "partial_distance_update_bf16": 0,
+              "running_topk_update_large_k": 0}
+    fp32_mb = {}              # mesh → the fp32 executor's resident MB
     splits = {}               # (tier, mesh, M, K) → survivor histogram
     for mesh in ((1, 1), (2, 2)):
         mb_before = torch.cuda.memory_allocated() / 2 ** 20
         ex = SpmdExecutor(index, ExecutorConfig(d_blocks=mesh[1]), mesh=mesh)
         executor_mb = torch.cuda.memory_allocated() / 2 ** 20 - mb_before
+        fp32_mb[mesh] = executor_mb
         ops.reset_launch_counts()
         t_mesh = time.perf_counter()
         lo, walls = 0, {}
@@ -1123,27 +1646,48 @@ def main() -> int:
     time_topk_path_shaped(dev, smi, splits)
 
     # ---------------------------------------------------------- 5. serve_engine
-    counts = serve_engine(dev, smi, index, ds, q_all, sizes)
+    counts, plane = serve_engine(dev, smi, index, ds, q_all, sizes)
     for k in served:
         served[k] += counts[k]
     time_merge_shapes(dev, smi)
 
+    # ------------------------------------- 6-9. this slice's served paths
+    q128 = q_all[lo128:lo128 + 128]
+    paths = [serve_large_k(dev, smi, plane, q128)]
+    del plane
+    torch.cuda.empty_cache()
+    paths.append(serve_bf16(dev, smi, index, q128, fp32_mb[(1, 1)]))
+    paths.extend(serve_filtered_and_tiered(dev, smi, index, ds, q_all))
+    for counts in paths:
+        for k in served:
+            served[k] += counts[k]
+
     # ---------------------------------------------------------- 6. report
+    # one entry per kernel route; a kernel's own count takes both of its
+    # routes, so the f32-row and K <= 256 entries are the rest
     sources = {
         "partial_distance_update": ("src/repro_torch/kernels/csrc/partial_distance.cu",
                                     "src/repro/kernels/distance.py:127"),
+        "partial_distance_update_bf16": ("src/repro_torch/kernels/csrc/partial_distance.cu",
+                                         "src/repro/kernels/distance.py:127"),
         "int8_partial_distance_update": (
             "src/repro_torch/kernels/csrc/partial_distance_int8.cu",
             "src/repro/kernels/distance_int8.py:139"),
         "running_topk_update": ("src/repro_torch/kernels/csrc/topk_update.cu",
                                 "src/repro/kernels/topk_update.py:93"),
+        "running_topk_update_large_k": ("src/repro_torch/kernels/csrc/topk_update.cu",
+                                        "src/repro/kernels/topk_update.py:93"),
     }
+    launches = dict(served)
+    launches["partial_distance_update"] -= served["partial_distance_update_bf16"]
+    launches["running_topk_update"] -= served["running_topk_update_large_k"]
     kernels = []
     for name, (source, replaces) in sources.items():
         row = timed[name]
+        assert launches[name] > 0, f"{name}: no launch on the served paths"
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=served[name], max_abs_err=errs[name], ms=row["kernel_ms"],
+            launches=launches[name], max_abs_err=errs[name], ms=row["kernel_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))

@@ -1,8 +1,8 @@
 """HARMONY core: index build and layout, the int8 tier's codes, per-row
-metadata and the mutable segmented data plane, probe selection, the
-planner and its cost model, τ prewarm, the exact oracle, the two-stage
-int8 search, the host engine, the cross-segment merges and the ring
-pipeline on a virtual mesh."""
+metadata and the mutable segmented data plane, probe selection, filters,
+the planner and its cost model, τ prewarm, the exact oracle, the
+two-stage int8 search, the host engine, the cross-segment merges, BM25
+and rank fusion, and the ring pipeline on a virtual mesh."""
 
 from repro_torch.core.cost_model import HardwareModel, WorkloadStats, plan_cost
 from repro_torch.core.index import (
@@ -29,8 +29,17 @@ from repro_torch.core.pruning import (
     partial_scores_block,
     prewarm_tau,
 )
+from repro_torch.core.fusion import (
+    BM25Index,
+    reciprocal_rank_fusion,
+    segment_bm25,
+    tokenize,
+)
 from repro_torch.core.search import (
     delta_topk,
+    filter_bitmap,
+    filter_excluded_rows,
+    filtered_assign_queries,
     harmony_search,
     merge_topk,
     search_oracle,
@@ -58,5 +67,7 @@ __all__ = [
     "plan_search", "factorizations", "PlanDecision", "HardwareModel",
     "WorkloadStats", "plan_cost", "harmony_search",
     "search_oracle", "delta_topk", "merge_topk", "two_stage_search",
+    "filter_bitmap", "filter_excluded_rows", "filtered_assign_queries",
+    "BM25Index", "tokenize", "segment_bm25", "reciprocal_rank_fusion",
     "TopKHeap", "exact_scores", "prewarm_tau", "partial_scores_block",
 ]

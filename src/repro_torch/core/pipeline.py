@@ -46,9 +46,12 @@ from repro_torch.kernels import ops as kops
 class SpmdConfig:
     """Static geometry of the ring search step.
 
-    Only ``n_pods=1`` and ``x_dtype="float32"`` are carried by the port;
-    other values raise ``NotImplementedError``. ``precision`` is
-    ``"fp32"`` or ``"int8"`` (the quantized stage 1, L2 only).
+    Only ``n_pods=1`` is carried by the port; other values raise
+    ``NotImplementedError``. ``x_dtype`` is ``"float32"`` or
+    ``"bfloat16"`` (the resident rows of the fp32 precision; queries,
+    norms and sums stay f32; the int8 precision keeps its codes whatever
+    it says). ``precision`` is ``"fp32"`` or ``"int8"`` (the quantized
+    stage 1, L2 only).
     ``use_pallas`` is kept for signature parity: the route is chosen by
     the tensors' device (kernel on CUDA, plain version on the CPU), and
     ``False`` is not supported.
@@ -65,7 +68,7 @@ class SpmdConfig:
     chunk: int = 512       # candidate rows scored per ring pass
     metric: str = "l2"
     prune: bool = True
-    x_dtype: str = "float32"
+    x_dtype: str = "float32"    # bf16 halves the resident rows (sums stay f32)
     precision: str = "fp32"
     use_pallas: Optional[bool] = True
     tile_m: int = 128
@@ -94,7 +97,7 @@ class SpmdConfig:
             # the shared-grid quantized difference form is L2-only
             raise ValueError("precision='int8' needs metric='l2', "
                              f"got {self.metric!r}")
-        if self.x_dtype != "float32":
+        if self.x_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"x_dtype={self.x_dtype!r}")
         if self.n_pods != 1:
             raise NotImplementedError(f"n_pods={self.n_pods}")
@@ -115,7 +118,7 @@ def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig,
     """Pack the sharded corpus into the step's resident arrays, in the
     reference's layout, on the corpus's device:
 
-      x_blocks   [V, cap, D_pad]  f32 | int8 codes
+      x_blocks   [V, cap, D_pad]  f32 | bf16 | int8 codes
       xn2_blocks [B, V, cap]      f32
       cluster_ids[V, cap]         i32
       row_ids    [V, cap]         i32
@@ -129,6 +132,12 @@ def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig,
     host-only ``quant_grid`` = (scale [B], zero [B]) that queries are
     encoded on. Padded rows and dims encode literal 0.0 on the same grid
     as query padding, so padding contributes exactly 0.
+
+    With ``x_dtype="bfloat16"`` the rows are rounded to bf16 and the block
+    norms are f32 sums of the rounded rows. The reference sums them in
+    bf16 (``np.sum`` over ``ml_dtypes`` arrays), which errs by up to a
+    few per cent of ‖x‖²; the port keeps f32 accumulation, as the
+    reference's own note on ``x_dtype`` intends.
     """
     V, B = scfg.v_shards, scfg.d_blocks
     cap, D = scfg.cap, scfg.dim
@@ -166,15 +175,17 @@ def build_corpus_arrays(corpus: ShardedCorpus, scfg: SpmdConfig,
             quant_grid=(scale, zero),   # host-only: the queries' grid
         )
 
-    x_blocks = torch.zeros((V, cap, D), dtype=torch.float32, device=dev)
+    xdt = torch.bfloat16 if scfg.x_dtype == "bfloat16" else torch.float32
+    x_blocks = torch.zeros((V, cap, D), dtype=xdt, device=dev)
     x_blocks[:, :n, : xs.shape[2]] = xs
     xn2_blocks = torch.zeros((B, V, cap), dtype=torch.float32, device=dev)
-    if corpus.xnorm2_blk.shape[1] == B:
+    if xdt == torch.float32 and corpus.xnorm2_blk.shape[1] == B:
         # zero padding (rows or dims) does not change block norms
         xn2_blocks[:, :, :n] = corpus.xnorm2_blk.permute(1, 0, 2)
     else:
+        # the rounded rows (or another block split) have their own norms
         for b, (lo, hi) in enumerate(dim_block_bounds(D, B)):
-            seg = x_blocks[:, :, lo:hi]
+            seg = x_blocks[:, :, lo:hi].float()
             xn2_blocks[b] = (seg * seg).sum(2)
     return dict(x_blocks=x_blocks, xn2_blocks=xn2_blocks,
                 cluster_ids=cluster_ids, row_ids=row_ids)
@@ -281,12 +292,55 @@ def gather_local_candidates(rows, x_blk, xn2_blk, cluster_ids, row_ids):
     return x_c, xn2_c, cl_c, id_c
 
 
+def gather_host_candidates(arrays: dict, rows: np.ndarray,
+                           out: Optional[dict] = None) -> dict:
+    """Host-side analogue of :func:`gather_local_candidates` for a
+    host-tier segment: gather the probed rows out of the host-resident
+    arrays (:func:`resident_arrays`'s layout, on the CPU, pinned when a
+    card is the target) into per-batch candidate arrays ready to copy to
+    the device.
+
+    ``rows`` [V, cap_b] indexes each shard's packed rows, -1 = pad. Pad
+    slots re-read row 0 but get cluster id -1, norm 0 and id -1, exactly
+    as the device-side gather gives them, so the ring sees the same
+    values bit for bit. ``out`` (the four arrays below, preallocated, for
+    instance in pinned memory) receives the result in place. Returns
+    ``dict(x_c [V, B, cap_b, Db], xn2_c [V, B, cap_b], cl_c [V, cap_b],
+    id_c [V, cap_b])``.
+    """
+    x_blk, xn2_blk = arrays["x_blk"], arrays["xn2_blk"]
+    cl, rid = arrays["cluster_ids"], arrays["row_ids"]
+    V, B, cap_full, db = x_blk.shape
+    rows_t = torch.as_tensor(np.asarray(rows), dtype=torch.int64)
+    cap_b = rows_t.shape[1]
+    keep = rows_t >= 0
+    safe = rows_t.clamp(0, cap_full - 1)
+    flat = ((torch.arange(V * B) * cap_full).view(V, B, 1) + safe[:, None, :]).reshape(-1)
+    if out is None:
+        out = dict(
+            x_c=torch.empty((V, B, cap_b, db), dtype=x_blk.dtype),
+            xn2_c=torch.empty((V, B, cap_b), dtype=torch.float32),
+            cl_c=torch.empty((V, cap_b), dtype=torch.int32),
+            id_c=torch.empty((V, cap_b), dtype=torch.int32),
+        )
+    torch.index_select(x_blk.reshape(-1, db), 0, flat,
+                       out=out["x_c"].view(V * B * cap_b, db))
+    torch.index_select(xn2_blk.reshape(-1), 0, flat, out=out["xn2_c"].view(-1))
+    out["xn2_c"].masked_fill_(~keep[:, None, :], 0.0)
+    torch.gather(cl, 1, safe, out=out["cl_c"])
+    out["cl_c"].masked_fill_(~keep, -1)
+    torch.gather(rid, 1, safe, out=out["id_c"])
+    out["id_c"].masked_fill_(~keep, -1)
+    return out
+
+
 def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
                       q_blk, probes, tau0, scale2=None):
     """The ring search over the whole virtual mesh.
 
-    x_blk [V, B, cap, Db], xn2_blk [V, B, cap], cluster_ids/row_ids
-    [V, cap] (cap = ``scfg.cap``), q_blk [qb, D_pad] f32, probes [qb, P]
+    x_blk [V, B, cap, Db] (f32 or bf16 rows), xn2_blk [V, B, cap],
+    cluster_ids/row_ids [V, cap] (cap = ``scfg.cap``), q_blk [qb, D_pad]
+    f32, probes [qb, P]
     i32, tau0 [qb] f32, all on one device. Returns (scores [qb, K],
     ids [qb, K] i32, stats [2] int64 = (tiles skipped, tiles scored)).
 

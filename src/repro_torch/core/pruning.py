@@ -91,16 +91,20 @@ def prewarm_tau(
     samples_per_cluster: int = 4,
     metric: str = "l2",
     dead_rows: Optional[np.ndarray] = None,
+    rows_dtype: Optional[torch.dtype] = None,
 ) -> np.ndarray:
     """PrewarmHeap (Alg. 1, lines 1–5): exactly score the first
     ``samples_per_cluster`` rows of every probed cluster; the kth-smallest
     sampled distance is a valid initial τ. ``dead_rows`` (bool [NB],
-    packed-row tombstones) leaves dead rows out of the sample.
+    packed-row tombstones) leaves dead rows out of the sample; a repeated
+    probe is sampled once (the reference samples it again).
 
     The sample table is host bookkeeping; the rows are gathered and
     scored on the index's device, in the difference form Σ(x−q)² as in
     the reference. Returns tau0 [NQ] float32 (+inf where the sample was
-    smaller than K).
+    smaller than K). ``rows_dtype`` (bf16) scores the sampled rows as a
+    ring over rows stored in that type sees them: rounded, then widened,
+    so τ0 bounds the k-th distance in that metric.
     """
     nq = q.shape[0]
     take = np.minimum(index.sizes, samples_per_cluster)
@@ -108,10 +112,13 @@ def prewarm_tau(
         np.arange(index.offsets[c], index.offsets[c] + take[c], dtype=np.int64)
         for c in range(index.nlist)
     ]
+    # a cluster probed twice (the duplicate-fill of a filtered probe
+    # table) is sampled once: a row counted twice would put τ0 below the
+    # k-th distance of the candidate set, and pruning would drop members
     all_rows = [
-        np.concatenate([sample_rows_per_cluster[c] for c in probes[i]])
-        if probes.shape[1]
-        else np.zeros((0,), np.int64)
+        np.concatenate([sample_rows_per_cluster[c]
+                        for c in dict.fromkeys(probes[i].tolist()) if c >= 0]
+                       or [np.zeros((0,), np.int64)])
         for i in range(nq)
     ]
     width = max((len(r) for r in all_rows), default=0)
@@ -127,6 +134,8 @@ def prewarm_tau(
         msk &= ~dead_rows[mat]
     dev = index.device
     cand = index.x[torch.as_tensor(mat, device=dev)]          # [NQ, W, D]
+    if rows_dtype is not None:
+        cand = cand.to(rows_dtype).float()
     qt = torch.as_tensor(np.asarray(q, np.float32)).to(dev)
     if metric == "l2":
         diff = cand - qt[:, None, :]

@@ -1,9 +1,17 @@
 """End-to-end search paths.
 
+Filters, on the host (numpy, as in the reference): a metadata predicate
+compiles to a per-segment allowed bitmap (:func:`filter_bitmap`, cached
+on the index), merges with the tombstones into one excluded mask
+(:func:`filter_excluded_rows`), and prunes and widens probe selection
+(:func:`filtered_assign_queries`). Every engine then masks excluded rows
+as it masks dead ones.
+
 On the index's device, as plain PyTorch:
 
 * :func:`search_oracle`, the exact IVF oracle (single-node Faiss-like
-  scan), the ground truth the ring search is held against;
+  scan), the ground truth the ring search is held against (``flt=`` the
+  filtered one);
 * :func:`two_stage_search`, the int8 tier's counterpart (int8 scan,
   then an exact fp32 re-rank), the ground truth of the executor's
   ``precision="int8"``;
@@ -38,8 +46,99 @@ from repro_torch.core.pruning import (
     partial_scores_block,
     prewarm_tau,
 )
-from repro_torch.core.types import PartitionPlan, SearchResult
+from repro_torch.core.types import Filter, PartitionPlan, SearchResult
 from repro_torch.kernels import ops, topk_update
+
+FILTER_CACHE_ENTRIES = 64        # allowed bitmaps kept per segment index
+
+
+# ---------------------------------------------------------------------------
+# Filter compilation: predicate → packed-row bitmap → probe pushdown
+# ---------------------------------------------------------------------------
+
+
+def filter_bitmap(index: IVFIndex, flt: Filter) -> np.ndarray:
+    """The segment's *allowed* bitmap under ``flt`` (bool [NB], packed-row
+    order).
+
+    Cached on the immutable segment index, keyed by the (hashable) filter,
+    at most :data:`FILTER_CACHE_ENTRIES` entries (the cache is cleared
+    when full). A corpus without metadata allows nothing: an absent
+    attribute cannot satisfy a predicate, as :meth:`Filter.evaluate` has
+    it for a missing column."""
+    cache = index.__dict__.setdefault("_filter_bitmaps", {})
+    bm = cache.get(flt)
+    if bm is None:
+        if len(cache) >= FILTER_CACHE_ENTRIES:
+            cache.clear()
+        if index.meta is None:
+            bm = np.zeros(index.nb, bool)
+        else:
+            bm = flt.evaluate(index.meta.tags, index.meta.nums, index.nb)
+        cache[flt] = bm
+    return bm
+
+
+def filter_excluded_rows(
+    index: IVFIndex, flt: Optional[Filter],
+    dead_rows: Optional[np.ndarray],
+) -> Optional[np.ndarray]:
+    """One *excluded* mask (bool [NB]): the filter's disallowed rows and
+    the tombstones. A filter is a per-batch tombstone set, so every
+    dead-row path (the oracle's mask, the host engine's remap, the
+    executor's gather table) applies as it is. None when nothing is
+    excluded."""
+    if flt is None:
+        return dead_rows if dead_rows is not None and dead_rows.any() else None
+    excluded = ~filter_bitmap(index, flt)
+    if dead_rows is not None:
+        excluded = excluded | dead_rows
+    return excluded
+
+
+def filtered_assign_queries(
+    index: IVFIndex,
+    q: np.ndarray,
+    excluded: Optional[np.ndarray],
+    nprobe: Optional[int] = None,
+) -> np.ndarray:
+    """Probe selection with predicate pushdown: clusters whose every row
+    is excluded drop out of the centroid ranking.
+
+    Slots past the live clusters repeat the query's best live cluster (a
+    duplicate probe is one probe to every consumer; a negative sentinel
+    would wrap). Row masking stays the source of truth.
+
+    Selectivity widening: when the allowed share of rows falls below
+    ``cfg.filter_widen_threshold``, nprobe grows by ``threshold /
+    selectivity``, at most ``filter_widen_cap`` times, at most ``nlist``.
+    An explicit ``nprobe`` is the caller's and is never widened."""
+    explicit = nprobe is not None
+    nprobe = nprobe or index.cfg.nprobe
+    if excluded is None or not excluded.any():
+        return assign_queries(index, q, nprobe)
+    thr = index.cfg.filter_widen_threshold
+    sel = float((~excluded).mean())
+    if not explicit and thr > 0.0 and 0.0 < sel < thr:
+        cap = max(1.0, index.cfg.filter_widen_cap)
+        nprobe = min(index.nlist, int(np.ceil(nprobe * min(cap, thr / sel))))
+    live_cluster = np.bincount(index.cluster_of[~excluded],
+                               minlength=index.nlist) > 0
+    qn = np.sum(q * q, axis=1)[:, None]
+    cn = np.sum(index.centers * index.centers, axis=1)[None, :]
+    d = qn - 2.0 * (q @ index.centers.T) + cn
+    d = np.where(live_cluster[None, :], d, np.inf)
+    probes = np.argsort(d, axis=1)[:, :nprobe].astype(np.int32)
+    picked = np.take_along_axis(d, probes.astype(np.int64), axis=1)
+    bad = ~np.isfinite(picked)
+    if bad.any():
+        probes = np.where(bad, probes[:, :1], probes)
+    return probes
+
+
+# ---------------------------------------------------------------------------
+# Oracle and the int8 tier's two-stage search (on the index's device)
+# ---------------------------------------------------------------------------
 
 
 def search_oracle(
@@ -49,15 +148,20 @@ def search_oracle(
     nprobe: Optional[int] = None,
     chunk: int = 128,
     dead_rows: Optional[np.ndarray] = None,
+    flt: Optional[Filter] = None,
 ) -> SearchResult:
     """Exact top-k over probed clusters (masked full scan, ``chunk``
     queries at a time) on the index's device.
 
     ``dead_rows`` (bool [NB], packed-row tombstones) leaves rows out of
-    the candidate set. Ties go to the lowest packed row (a stable sort).
+    the candidate set, and ``flt`` the rows its predicate disallows (the
+    filtered ground truth; probes are chosen as without a filter). Ties
+    go to the lowest packed row (a stable sort).
     """
     cfg = index.cfg
     k = k or cfg.topk
+    if flt is not None:
+        dead_rows = filter_excluded_rows(index, flt, dead_rows)
     q = np.asarray(q, np.float32)
     probes = assign_queries(index, q, nprobe)
     nq = q.shape[0]

@@ -40,52 +40,90 @@
 // cannot contract the fold into an FMA and change the TPU kernel's order.
 // Rows or chunks that are not 16-byte aligned (Db or tile_k not a multiple
 // of 4) are staged 4 bytes a copy instead, zero-padded to whole float4s.
+//
+// bf16 rows (the TPU kernel's `x.astype(f32)` before the dot): the kernel is
+// a template on the row type. bf16 rows are staged with 16-byte cp.async
+// copies of 8 elements into bf16 shared rows (pitch 136 elements, so the 16
+// rows a half-warp reads at once fall on distinct banks in two wavefronts),
+// and each thread widens 8 of them to f32 in registers (a bf16 is the top
+// half of an f32: a shift, exact) per step of 8. Queries, norms, the
+// accumulator, the dot and tau stay f32, and the FMA chain runs in the same
+// k order as on f32 rows, so the result is the f32 kernel's on the widened
+// rows. Half the row bytes cross from memory. Rows or chunks that are not 16
+// bytes aligned (Db or tile_k not a multiple of 8) are copied one element at
+// a time, zero-padded to whole groups of 8.
+
+#include <type_traits>
 
 #include "subtile.cuh"
 
 namespace {
+
+typedef unsigned short bf16_t;    // the raw bits of a bfloat16
 
 constexpr int kBM = 16;           // sub-tile rows (queries)
 constexpr int kBN = 32;           // sub-tile columns (candidates)
 constexpr int kThreads = 256;     // two halves (kh) of 128 threads
 constexpr int kKs = 128;          // contraction columns staged at once
 constexpr int kLd = kKs + 4;      // padded shared row (floats)
+constexpr int kLdH = kKs + 8;     // padded shared bf16 row (elements)
+
+// the shared row pitch (elements) and the contraction step of a row type
+template <typename TX> struct RowT;
+template <> struct RowT<float> { static constexpr int ld = kLd, step = 4; };
+template <> struct RowT<bf16_t> { static constexpr int ld = kLdH, step = 8; };
 
 // Copy columns [k0, k0 + w) of the sub-tile's q and x rows into shared
 // memory and commit them as one cp.async group; on the scalar path the
-// columns up to the next multiple of 4 are zeroed.
-__device__ __forceinline__ void stage(float* qs, float* xs, const float* __restrict__ q,
-                      const float* __restrict__ x, int D, const subtile::Sub& s,
+// columns up to the next multiple of the row type's step are zeroed.
+template <typename TX>
+__device__ __forceinline__ void stage(float* qs, TX* xs, const float* __restrict__ q,
+                      const TX* __restrict__ x, int D, const subtile::Sub& s,
                       int k0, int w, bool vec) {
-  const int nrows = s.rows + s.cols;
+  constexpr int ld = RowT<TX>::ld, step = RowT<TX>::step;
   if (vec) {
-    const int per = w / 4;
-    for (int e = threadIdx.x; e < nrows * per; e += kThreads) {
-      const int r = e / per, p = 4 * (e % per);
-      if (r < s.rows)
-        subtile::cp_async16(qs + r * kLd + p, q + (size_t)(s.r0 + r) * D + k0 + p);
-      else
-        subtile::cp_async16(xs + (r - s.rows) * kLd + p,
-                            x + (size_t)(s.c0 + r - s.rows) * D + k0 + p);
+    const int perq = w / 4, perx = w / (16 / (int)sizeof(TX));
+    for (int e = threadIdx.x; e < s.rows * perq; e += kThreads) {
+      const int r = e / perq, p = 4 * (e % perq);
+      subtile::cp_async16(qs + r * kLd + p, q + (size_t)(s.r0 + r) * D + k0 + p);
+    }
+    constexpr int ex = 16 / (int)sizeof(TX);
+    for (int e = threadIdx.x; e < s.cols * perx; e += kThreads) {
+      const int r = e / perx, p = ex * (e % perx);
+      subtile::cp_async16(xs + r * ld + p, x + (size_t)(s.c0 + r) * D + k0 + p);
     }
   } else {
-    const int w4 = (w + 3) & ~3;
-    for (int e = threadIdx.x; e < nrows * w4; e += kThreads) {
-      const int r = e / w4, k = e % w4;
-      float* dst = r < s.rows ? qs + r * kLd + k : xs + (r - s.rows) * kLd + k;
-      const float* src = r < s.rows ? q + (size_t)(s.r0 + r) * D
-                                    : x + (size_t)(s.c0 + r - s.rows) * D;
+    const int ws = (w + step - 1) / step * step;
+    for (int e = threadIdx.x; e < s.rows * ws; e += kThreads) {
+      const int r = e / ws, k = e % ws;
+      float* dst = qs + r * kLd + k;
       if (k < w)
-        subtile::cp_async4(dst, src + k0 + k);
+        subtile::cp_async4(dst, q + (size_t)(s.r0 + r) * D + k0 + k);
       else
         *dst = 0.0f;
+    }
+    for (int e = threadIdx.x; e < s.cols * ws; e += kThreads) {
+      const int r = e / ws, k = e % ws;
+      TX* dst = xs + r * ld + k;
+      if constexpr (std::is_same<TX, float>::value) {
+        if (k < w)
+          subtile::cp_async4(dst, x + (size_t)(s.c0 + r) * D + k0 + k);
+        else
+          *dst = TX(0);
+      } else {                    // a 2-byte element: a plain copy
+        *dst = k < w ? x[(size_t)(s.c0 + r) * D + k0 + k] : TX(0);
+      }
     }
   }
   subtile::cp_async_commit();
 }
 
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-partial_distance_kernel(const float* __restrict__ x,     // [N, D]
+partial_distance_kernel(const TX* __restrict__ x,        // [N, D]
                         const float* __restrict__ xn2,   // [N]
                         const float* __restrict__ q,     // [M, D]
                         const float* __restrict__ qn2,   // [M]
@@ -95,14 +133,15 @@ partial_distance_kernel(const float* __restrict__ x,     // [N, D]
                         int* __restrict__ skip,          // [mt, nt]
                         int M, int N, int D, int tile_m, int tile_n,
                         int tile_k, int l2, int prune) {
+  constexpr int ld = RowT<TX>::ld, step = RowT<TX>::step;
   __shared__ __align__(16) float qs[kBM * kLd];
-  __shared__ __align__(16) float xs[kBN * kLd];
+  __shared__ __align__(16) TX xs[kBN * ld];
   __shared__ float4 part[kThreads / 2];           // the kh = 1 half's dots
 
   const subtile::Sub s = subtile::locate<kBM, kBN>(M, N, tile_m, tile_n);
   if (s.rows <= 0 || s.cols <= 0) return;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16 % 8, kh = tid / 128;
-  const bool vec = D % 4 == 0 && tile_k % 4 == 0 && subtile::aligned16(x) &&
+  const bool vec = D % step == 0 && tile_k % step == 0 && subtile::aligned16(x) &&
                    subtile::aligned16(q);
 
   // 1. the first window's copies fly while acc is tested
@@ -161,8 +200,8 @@ partial_distance_kernel(const float* __restrict__ x,     // [N, D]
   const float scale = l2 ? 2.0f : 1.0f;
   const float* qa = qs + ty * kLd;
   const float* qb = qs + (ty + 8) * kLd;
-  const float* xa = xs + tx * kLd;
-  const float* xb = xs + (tx + 16) * kLd;
+  const TX* xa = xs + tx * ld;
+  const TX* xb = xs + (tx + 16) * ld;
   for (int c0 = 0; c0 < D; c0 += tile_k) {
     const int c1 = subtile::imin(c0 + tile_k, D);
     float d00 = 0.0f, d01 = 0.0f, d10 = 0.0f, d11 = 0.0f;
@@ -174,21 +213,49 @@ partial_distance_kernel(const float* __restrict__ x,     // [N, D]
       }
       subtile::cp_async_wait_all();
       __syncthreads();
-      const int w4 = (w + 3) & ~3, half = (w4 / 4 + 1) / 2 * 4;
+      const int ws = (w + step - 1) / step * step;
+      const int half = (ws / step + 1) / 2 * step;
+      if constexpr (std::is_same<TX, float>::value) {
 #pragma unroll 4
-      for (int k = kh ? half : 0; k < (kh ? w4 : half); k += 4) {
-        const float4 p0 = *reinterpret_cast<const float4*>(qa + k);
-        const float4 p1 = *reinterpret_cast<const float4*>(qb + k);
-        const float4 y0 = *reinterpret_cast<const float4*>(xa + k);
-        const float4 y1 = *reinterpret_cast<const float4*>(xb + k);
-        d00 = fmaf(p0.x, y0.x, d00); d00 = fmaf(p0.y, y0.y, d00);
-        d00 = fmaf(p0.z, y0.z, d00); d00 = fmaf(p0.w, y0.w, d00);
-        d01 = fmaf(p0.x, y1.x, d01); d01 = fmaf(p0.y, y1.y, d01);
-        d01 = fmaf(p0.z, y1.z, d01); d01 = fmaf(p0.w, y1.w, d01);
-        d10 = fmaf(p1.x, y0.x, d10); d10 = fmaf(p1.y, y0.y, d10);
-        d10 = fmaf(p1.z, y0.z, d10); d10 = fmaf(p1.w, y0.w, d10);
-        d11 = fmaf(p1.x, y1.x, d11); d11 = fmaf(p1.y, y1.y, d11);
-        d11 = fmaf(p1.z, y1.z, d11); d11 = fmaf(p1.w, y1.w, d11);
+        for (int k = kh ? half : 0; k < (kh ? ws : half); k += 4) {
+          const float4 p0 = *reinterpret_cast<const float4*>(qa + k);
+          const float4 p1 = *reinterpret_cast<const float4*>(qb + k);
+          const float4 y0 = *reinterpret_cast<const float4*>(xa + k);
+          const float4 y1 = *reinterpret_cast<const float4*>(xb + k);
+          d00 = fmaf(p0.x, y0.x, d00); d00 = fmaf(p0.y, y0.y, d00);
+          d00 = fmaf(p0.z, y0.z, d00); d00 = fmaf(p0.w, y0.w, d00);
+          d01 = fmaf(p0.x, y1.x, d01); d01 = fmaf(p0.y, y1.y, d01);
+          d01 = fmaf(p0.z, y1.z, d01); d01 = fmaf(p0.w, y1.w, d01);
+          d10 = fmaf(p1.x, y0.x, d10); d10 = fmaf(p1.y, y0.y, d10);
+          d10 = fmaf(p1.z, y0.z, d10); d10 = fmaf(p1.w, y0.w, d10);
+          d11 = fmaf(p1.x, y1.x, d11); d11 = fmaf(p1.y, y1.y, d11);
+          d11 = fmaf(p1.z, y1.z, d11); d11 = fmaf(p1.w, y1.w, d11);
+        }
+      } else {
+#pragma unroll 2
+        for (int k = kh ? half : 0; k < (kh ? ws : half); k += 8) {
+          const uint4 u0 = *reinterpret_cast<const uint4*>(xa + k);
+          const uint4 u1 = *reinterpret_cast<const uint4*>(xb + k);
+          const float y0[8] = {bf16_lo(u0.x), bf16_hi(u0.x), bf16_lo(u0.y), bf16_hi(u0.y),
+                               bf16_lo(u0.z), bf16_hi(u0.z), bf16_lo(u0.w), bf16_hi(u0.w)};
+          const float y1[8] = {bf16_lo(u1.x), bf16_hi(u1.x), bf16_lo(u1.y), bf16_hi(u1.y),
+                               bf16_lo(u1.z), bf16_hi(u1.z), bf16_lo(u1.w), bf16_hi(u1.w)};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 p0 = *reinterpret_cast<const float4*>(qa + k + 4 * h);
+            const float4 p1 = *reinterpret_cast<const float4*>(qb + k + 4 * h);
+            const float* a = y0 + 4 * h;
+            const float* b = y1 + 4 * h;
+            d00 = fmaf(p0.x, a[0], d00); d00 = fmaf(p0.y, a[1], d00);
+            d00 = fmaf(p0.z, a[2], d00); d00 = fmaf(p0.w, a[3], d00);
+            d01 = fmaf(p0.x, b[0], d01); d01 = fmaf(p0.y, b[1], d01);
+            d01 = fmaf(p0.z, b[2], d01); d01 = fmaf(p0.w, b[3], d01);
+            d10 = fmaf(p1.x, a[0], d10); d10 = fmaf(p1.y, a[1], d10);
+            d10 = fmaf(p1.z, a[2], d10); d10 = fmaf(p1.w, a[3], d10);
+            d11 = fmaf(p1.x, b[0], d11); d11 = fmaf(p1.y, b[1], d11);
+            d11 = fmaf(p1.z, b[2], d11); d11 = fmaf(p1.w, b[3], d11);
+          }
+        }
       }
     }
     if (kh) part[tid - 128] = make_float4(d00, d01, d10, d11);
@@ -222,18 +289,36 @@ extern "C" long long partial_distance_ctas(int M, int N, int tile_m, int tile_n)
   return subtile::grid_ctas<kBM, kBN>(M, N, tile_m, tile_n);
 }
 
+template <typename TX>
+int launch(const void* x, const void* xn2, const void* q, const void* qn2,
+           const void* acc, const void* tau, void* out, void* skip,
+           int M, int N, int D, int tile_m, int tile_n, int tile_k, int l2, int prune,
+           void* stream) {
+  const long long ctas = subtile::grid_ctas<kBM, kBN>(M, N, tile_m, tile_n);
+  if (ctas <= 0 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  partial_distance_kernel<TX><<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
+      (const TX*)x, (const float*)xn2, (const float*)q, (const float*)qn2,
+      (const float*)acc, (const float*)tau, (float*)out, (int*)skip,
+      M, N, D, tile_m, tile_n, tile_k, l2, prune);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int partial_distance_update_f32(
     const void* x, const void* xn2, const void* q, const void* qn2,
     const void* acc, const void* tau, void* out, void* skip,
     int M, int N, int D, int tile_m, int tile_n, int tile_k, int l2, int prune,
     void* stream) {
-  const long long ctas = partial_distance_ctas(M, N, tile_m, tile_n);
-  if (ctas <= 0 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  partial_distance_kernel<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)xn2, (const float*)q, (const float*)qn2,
-      (const float*)acc, (const float*)tau, (float*)out, (int*)skip,
-      M, N, D, tile_m, tile_n, tile_k, l2, prune);
-  return (int)cudaGetLastError();
+  return launch<float>(x, xn2, q, qn2, acc, tau, out, skip, M, N, D, tile_m,
+                       tile_n, tile_k, l2, prune, stream);
+}
+
+extern "C" int partial_distance_update_bf16(
+    const void* x, const void* xn2, const void* q, const void* qn2,
+    const void* acc, const void* tau, void* out, void* skip,
+    int M, int N, int D, int tile_m, int tile_n, int tile_k, int l2, int prune,
+    void* stream) {
+  return launch<bf16_t>(x, xn2, q, qn2, acc, tau, out, skip, M, N, D, tile_m,
+                        tile_n, tile_k, l2, prune, stream);
 }
 
 extern "C" const char* partial_distance_error_string(int err) {

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel `running_topk_update` of
 // src/repro/kernels/topk_update.py (body `_kernel`). Merges candidates
 // scores/ids [M, C] (+inf = invalid) into the ascending running top-K
-// run_s/run_i [M, K], K <= 256, C <= 4096. The result is the first K of the
+// run_s/run_i [M, K], any C and K <= kMaxK. The result is the first K of the
 // stable ascending sort of each row's [run, candidates]: on equal scores a
 // running entry wins over a candidate (the TPU kernel's head_s <= cmin), and
 // among equal candidates the lowest column wins. Wherever the output score
@@ -19,10 +19,11 @@
 // at M = 128, C = 256, K = 40): tens of nanoseconds at 3.35 TB/s. Neither
 // bytes nor operations bound it: its time is the launch, one chain of
 // dependent loads, votes and stores per row, and, in the rows where
-// candidates may enter the list, the merge: a shuffle and E + 1 votes per
-// merged candidate, and a shared-memory round trip per group of 32.
+// candidates may enter the list, the merge.
 //
-// Design: one warp per row and one warp per CTA, so M CTAs per launch.
+// Two routes, chosen at launch by K.
+//
+// Route 1, K <= 256: one warp per row and one warp per CTA, so M CTAs.
 //  - The running list lives in registers: lane l holds entries l + 32 e for
 //    e < E, E = 1, 2, 4 or 8, the least that covers K (a template argument
 //    chosen at launch; +inf beyond K), each with a source tag, -1 - j for
@@ -47,9 +48,27 @@
 //    tightens to the new K-th score. The window's later survivors are then
 //    counted again under that thr, so a dense window (an empty list under
 //    an all-finite chunk) takes a few groups, not one merge per slice.
-//  - Each id is read once, at the output write: from run_i, or from the
-//    candidate's column of `ids` (row stride C, or 0 when the ring passes one
-//    chunk's ids to every row of a group; those reads then hit in cache).
+//
+// Route 2, 256 < K <= kMaxK (the int8 tier's K' = 4 k above k = 64, a served
+// k above 256): one CTA of 256 threads per row; the list no longer fits a
+// warp's registers.
+//  - The running list, a second list to merge into, and one window of up to
+//    2048 columns of survivors live in dynamic shared memory: 16 K + 8 W
+//    bytes, 212 KB at K = 12288, W = 2048. That bounds K.
+//  - Each window's survivors (s < thr) are compacted with one vote and one
+//    shared atomic per warp and load, in any order, then sorted block-wide
+//    by (score, column) with a bitonic network padded to the next power of
+//    two (columns are distinct, so the order is total).
+//  - A merge path by ranks keeps the first K: run entry j lands at
+//    j + #(survivors < it) and survivor i at i + #(run entries <= it), each
+//    count a binary search; positions >= K are dropped. The run wins ties.
+//  - A window folded earlier is part of the run for the later windows. Its
+//    columns are lower, so "the run wins" is the stable sort's "the lower
+//    column wins". A window without survivors costs its loads and a vote.
+//
+// Both routes read each id once, at the output write: from run_i, or from
+// the candidate's column of `ids` (row stride C, or 0 when the ring passes
+// one chunk's ids to every row of a group; those reads then hit in cache).
 //
 // Why merging group by group, in column order, is right: the result is the
 // first K by the key (score, position in [run, candidates]). Taking the
@@ -199,20 +218,180 @@ int launch(const void* scores, const void* ids, long long ids_ld,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ route 2
+constexpr int kBigThreads = 256;
+constexpr int kBigWindow = 2048;           // columns of one survivor window
+constexpr int kMaxK = 12288;               // 16 K + 8 W bytes <= 227 KB
+
+__device__ __forceinline__ bool key_gt(float sa, int ca, float sb, int cb) {
+  return sa > sb || (sa == sb && ca > cb);
+}
+
+// #{i < n : a[i] < v} over the ascending a
+__device__ __forceinline__ int count_lt(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// #{i < n : a[i] <= v} over the ascending a
+__device__ __forceinline__ int count_le(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kBigThreads)
+topk_update_big_kernel(const float* __restrict__ scores,  // [M, C]
+                       const int* __restrict__ ids,       // [M, C] (row stride ids_ld)
+                       long long ids_ld,
+                       const float* __restrict__ run_s,   // [M, K]
+                       const int* __restrict__ run_i,     // [M, K]
+                       float* __restrict__ out_s,         // [M, K]
+                       int* __restrict__ out_i,           // [M, K]
+                       int C, int K, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ls = reinterpret_cast<float*>(smem);        // the list [K]
+  int* lc = reinterpret_cast<int*>(ls + K);          // its sources [K]
+  float* ns = reinterpret_cast<float*>(lc + K);      // the next list [K]
+  int* nc = reinterpret_cast<int*>(ns + K);
+  float* cs = reinterpret_cast<float*>(nc + K);      // survivors [W]
+  int* cc = reinterpret_cast<int*>(cs + W);
+  __shared__ int n_surv;
+  const int tid = threadIdx.x, lane = tid % kWarp;
+  const size_t row = blockIdx.x;
+  const float* srow = scores + row * C;
+
+  for (int j = tid; j < K; j += kBigThreads) {
+    ls[j] = run_s[row * K + j];
+    lc[j] = -1 - j;
+  }
+  if (tid == 0) n_surv = 0;
+  __syncthreads();
+  float thr = ls[K - 1];
+
+  for (int base = 0; base < C; base += W) {
+    // 1. compact the window's survivors (s < thr), in any order
+    for (int c0 = base; c0 < base + W; c0 += kBigThreads) {
+      const int c = c0 + tid;
+      const float v = c < C ? srow[c] : INFINITY;
+      const bool live = v < thr;
+      const unsigned vote = __ballot_sync(kFull, live);
+      if (vote) {
+        int at = 0;
+        if (lane == 0) at = atomicAdd(&n_surv, __popc(vote));
+        at = __shfl_sync(kFull, at, 0) + __popc(vote & ((1u << lane) - 1u));
+        if (live) { cs[at] = v; cc[at] = c; }
+      }
+    }
+    __syncthreads();
+    const int n = n_surv;
+    __syncthreads();            // every thread has read n before any new vote
+    if (n == 0) continue;       // n_surv is still 0 for the next window
+    // 2. sort them by (score, column): a bitonic network over P = 2^p >= n
+    int P = 1;
+    while (P < n) P <<= 1;
+    for (int j = n + tid; j < P; j += kBigThreads) { cs[j] = INFINITY; cc[j] = 0x7fffffff; }
+    __syncthreads();
+    for (int size = 2; size <= P; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = tid; i < P / 2; i += kBigThreads) {
+          const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+          const bool up = (lo & size) == 0;
+          const float sa = cs[lo], sb = cs[hi];
+          const int ca = cc[lo], cb = cc[hi];
+          if (key_gt(sa, ca, sb, cb) == up) {
+            cs[lo] = sb; cc[lo] = cb; cs[hi] = sa; cc[hi] = ca;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    // 3. merge by ranks into the next list, keeping the first K
+    const int m = n < K ? n : K;
+    for (int j = tid; j < K; j += kBigThreads) {
+      const float r = ls[j];
+      const int p = j + count_lt(cs, m, r);
+      if (p < K) { ns[p] = r; nc[p] = lc[j]; }
+    }
+    for (int i = tid; i < m; i += kBigThreads) {
+      const float v = cs[i];
+      const int p = i + count_le(ls, K, v);
+      if (p < K) { ns[p] = v; nc[p] = cc[i]; }
+    }
+    __syncthreads();
+    float* ts = ls; ls = ns; ns = ts;
+    int* tc = lc; lc = nc; nc = tc;
+    thr = ls[K - 1];
+    if (tid == 0) n_surv = 0;
+    __syncthreads();
+  }
+
+  const int* hi = run_i + row * K;
+  const int* irow = ids + row * ids_ld;
+  for (int j = tid; j < K; j += kBigThreads) {
+    const float v = ls[j];
+    const int src = lc[j];
+    out_s[row * K + j] = v;
+    out_i[row * K + j] = !isfinite(v) ? -1 : src < 0 ? hi[-1 - src] : irow[src];
+  }
+}
+
+// The window and the dynamic shared memory route 2 takes at C columns.
+int big_window(int C) {
+  int w = 1;
+  while (w < C && w < kBigWindow) w <<= 1;
+  return w < kBigThreads ? kBigThreads : w;
+}
+
+size_t big_smem_bytes(int K, int W) { return 16 * (size_t)K + 8 * (size_t)W; }
+
+int launch_big(const void* scores, const void* ids, long long ids_ld,
+               const void* run_s, const void* run_i, void* out_s, void* out_i,
+               int M, int C, int K, cudaStream_t stream) {
+  const int W = big_window(C);
+  const size_t bytes = big_smem_bytes(K, W);
+  static size_t granted = 0;               // the attribute set so far
+  if (bytes > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        topk_update_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)big_smem_bytes(kMaxK, kBigWindow));
+    if (e != cudaSuccess) return (int)e;
+    granted = big_smem_bytes(kMaxK, kBigWindow);
+  }
+  topk_update_big_kernel<<<M, kBigThreads, bytes, stream>>>(
+      (const float*)scores, (const int*)ids, ids_ld, (const float*)run_s,
+      (const int*)run_i, (float*)out_s, (int*)out_i, C, K, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Entries a lane holds for K: 1, 2, 4 or 8 (0 when K is outside 1..256).
+// Entries a lane holds for K on route 1: 1, 2, 4 or 8; 0 for route 2
+// (256 < K <= kMaxK); -1 when K is outside 1..kMaxK.
 extern "C" int topk_update_entries_per_lane(int K) {
-  if (K < 1 || K > 8 * kWarp) return 0;
+  if (K < 1 || K > kMaxK) return -1;
+  if (K > 8 * kWarp) return 0;
   return K <= kWarp ? 1 : K <= 2 * kWarp ? 2 : K <= 4 * kWarp ? 4 : 8;
 }
+
+extern "C" int topk_update_max_k() { return kMaxK; }
 
 extern "C" int running_topk_update_f32(
     const void* scores, const void* ids, long long ids_ld, const void* run_s,
     const void* run_i, void* out_s, void* out_i, int M, int C, int K,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (C < 1) return (int)cudaErrorInvalidValue;
   switch (topk_update_entries_per_lane(K)) {
+    case 0: return launch_big(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
     case 1: return launch<1>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
     case 2: return launch<2>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
     case 4: return launch<4>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);

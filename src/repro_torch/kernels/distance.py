@@ -22,8 +22,9 @@ def _lib():
     lib = _build.load("partial_distance")
     fn = lib.partial_distance_update_f32
     if fn.argtypes is None:
-        fn.argtypes = _SIG
-        fn.restype = ctypes.c_int
+        for f in (fn, lib.partial_distance_update_bf16):
+            f.argtypes = _SIG
+            f.restype = ctypes.c_int
         lib.partial_distance_error_string.argtypes = [ctypes.c_int]
         lib.partial_distance_error_string.restype = ctypes.c_char_p
         lib.partial_distance_ctas.argtypes = [ctypes.c_int] * 4
@@ -48,7 +49,7 @@ def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
 
 
 def partial_distance_update(
-    x: torch.Tensor,       # [N, Db] f32
+    x: torch.Tensor,       # [N, Db] f32 or bf16
     xn2: torch.Tensor,     # [N]
     q: torch.Tensor,       # [M, Db] f32
     qn2: torch.Tensor,     # [M]
@@ -65,7 +66,9 @@ def partial_distance_update(
 
     ``tile_m``/``tile_n`` set the skip map's granularity (each tile is
     covered by several CTAs); ``tile_k`` is the contraction chunk after
-    which ``scale·dot`` is subtracted, as in the TPU kernel.
+    which ``scale·dot`` is subtracted, as in the TPU kernel. Rows ``x``
+    may be bf16 (the kernel's bf16 route widens them to f32 in registers);
+    everything else is f32.
     """
     if metric not in ("l2", "ip"):
         raise ValueError(metric)
@@ -73,7 +76,7 @@ def partial_distance_update(
         raise ValueError((tile_m, tile_n, tile_k))
     n, d = x.shape
     m = q.shape[0]
-    _check("x", x, (n, d))
+    _check("x", x, (n, d), x.dtype if x.dtype == torch.bfloat16 else torch.float32)
     _check("xn2", xn2, (n,))
     _check("q", q, (m, d))
     _check("qn2", qn2, (m,))
@@ -90,7 +93,9 @@ def partial_distance_update(
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.partial_distance_update_f32(
+        bf16 = x.dtype == torch.bfloat16
+        fn = lib.partial_distance_update_bf16 if bf16 else lib.partial_distance_update_f32
+        err = fn(
             x.data_ptr(), xn2.data_ptr(), q.data_ptr(), qn2.data_ptr(),
             acc.data_ptr(), tau.data_ptr(), out.data_ptr(), skip.data_ptr(),
             m, n, d, tile_m, tile_n, tile_k, int(metric == "l2"), int(bool(prune)),
@@ -100,7 +105,10 @@ def partial_distance_update(
         raise RuntimeError("partial_distance_update launch failed: "
                            + lib.partial_distance_error_string(err).decode())
     partial_distance_update.launches += 1
+    if bf16:
+        partial_distance_update.bf16_launches += 1
     return out, skip
 
 
-partial_distance_update.launches = 0
+partial_distance_update.launches = 0          # every launch, both row types
+partial_distance_update.bf16_launches = 0     # the launches on bf16 rows

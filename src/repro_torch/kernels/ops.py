@@ -103,12 +103,19 @@ def running_topk_update(
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches and plain-version calls since the last reset."""
+    """Kernel launches and plain-version calls since the last reset. A
+    kernel's count takes every launch; ``partial_distance_update_bf16`` and
+    ``running_topk_update_large_k`` count again those of its bf16-row route
+    and its K > 256 route."""
     return {
         "partial_distance_update": distance.partial_distance_update.launches,
         "int8_partial_distance_update":
             distance_int8.int8_partial_distance_update.launches,
         "running_topk_update": topk_update.running_topk_update.launches,
+        "partial_distance_update_bf16":
+            distance.partial_distance_update.bf16_launches,
+        "running_topk_update_large_k":
+            topk_update.running_topk_update.large_k_launches,
         "partial_distance_update_ref": ref.partial_distance_update_ref.calls,
         "int8_partial_distance_update_ref":
             ref.int8_partial_distance_update_ref.calls,
@@ -120,6 +127,8 @@ def reset_launch_counts() -> None:
     distance.partial_distance_update.launches = 0
     distance_int8.int8_partial_distance_update.launches = 0
     topk_update.running_topk_update.launches = 0
+    distance.partial_distance_update.bf16_launches = 0
+    topk_update.running_topk_update.large_k_launches = 0
     ref.partial_distance_update_ref.calls = 0
     ref.int8_partial_distance_update_ref.calls = 0
     ref.running_topk_ref.calls = 0

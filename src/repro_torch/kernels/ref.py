@@ -13,7 +13,7 @@ import torch
 
 
 def partial_distance_update_ref(
-    x: torch.Tensor,       # [N, Db]  candidate rows, this dimension block
+    x: torch.Tensor,       # [N, Db]  candidate rows (f32 or bf16), this block
     xn2: torch.Tensor,     # [N]      per-row squared norm of this block
     q: torch.Tensor,       # [M, Db]  query rows, this dimension block
     qn2: torch.Tensor,     # [M]      per-query squared norm of this block
@@ -30,9 +30,11 @@ def partial_distance_update_ref(
     (IP), then once per ``tile_k``-wide chunk of the contraction
     ``out −= scale·dot_chunk`` (scale 2 for L2, 1 for IP), then the
     alive mask and the prune. +inf entries stay +inf (pruned pairs never
-    resurrect).
+    resurrect). bf16 rows are widened to f32 first (exact), as the TPU
+    kernel's ``x.astype(f32)``; the rest is the f32 arithmetic.
     """
     partial_distance_update_ref.calls += 1
+    x = x.float()
     if metric == "l2":
         out, scale = (acc + qn2[:, None]) + xn2[None, :], 2.0
     elif metric == "ip":

@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_K = 256          # the kernel keeps at most 8 list entries a lane
-MAX_C = 4096
+MAX_K = 12288        # route 2 keeps the list in shared memory: 16 K + 8 W bytes
+MAX_C = 2 ** 31 - 1  # columns are read in windows; the kernel indexes them as int
+WARP_MAX_K = 256     # route 1 (one warp a row, the list in registers) up to here
 _SIG = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -29,17 +30,29 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.topk_update_error_string.argtypes = [ctypes.c_int]
         lib.topk_update_error_string.restype = ctypes.c_char_p
+        lib.topk_update_max_k.argtypes = []
+        lib.topk_update_max_k.restype = ctypes.c_int
+        if lib.topk_update_max_k() != MAX_K:
+            raise RuntimeError("csrc/topk_update.cu and topk_update.MAX_K disagree")
     return lib
+
+
+def route(k: int) -> int:
+    """The kernel route a list of ``k`` takes: 1 (one warp a row, K <= 256)
+    or 2 (one CTA a row, the list in shared memory)."""
+    return 1 if k <= WARP_MAX_K else 2
 
 
 def check_limits(k: int, c: int) -> None:
     """Raise ``ValueError``, naming the limit, when the kernel cannot take
     a list of ``k`` or a chunk of ``c`` columns. Callers that choose K run
     it before any launch, on every device, so a K the card would refuse
-    fails the same way on the CPU."""
+    fails the same way on the CPU. K is bounded by the shared memory of
+    route 2 (the list, a second list to merge into and one window of
+    survivors), C only by the kernel's int column index."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside 1..{MAX_K}, the running top-K "
-                         "kernel's limit")
+                         "kernel's shared-memory limit")
     if not 1 <= c <= MAX_C:
         raise ValueError(f"C={c} outside 1..{MAX_C}, the running top-K "
                          "kernel's limit")
@@ -65,9 +78,9 @@ def running_topk_update(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge a candidate chunk into the per-query running top-K.
 
-    ``tile_m`` is accepted for signature parity; the kernel runs one warp
-    per query row and one warp per CTA (M CTAs). ``ids`` may be an
-    expanded row (``id_c.expand(M, C)``).
+    ``tile_m`` is accepted for signature parity; the kernel runs one CTA
+    per query row (M CTAs): one warp for K <= 256, 256 threads above
+    (:func:`route`). ``ids`` may be an expanded row (``id_c.expand(M, C)``).
     """
     m, c = scores.shape
     if k != run_s.shape[1]:
@@ -102,7 +115,10 @@ def running_topk_update(
         raise RuntimeError("running_topk_update launch failed: "
                            + lib.topk_update_error_string(err).decode())
     running_topk_update.launches += 1
+    if route(k) == 2:
+        running_topk_update.large_k_launches += 1
     return out_s, out_i
 
 
-running_topk_update.launches = 0
+running_topk_update.launches = 0          # every launch, both routes
+running_topk_update.large_k_launches = 0  # the launches of route 2

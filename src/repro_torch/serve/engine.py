@@ -17,12 +17,23 @@ bumps the generation and the server swaps to the new segment set on its
 next batch (or eagerly through :meth:`HarmonyServer.adopt` after
 :meth:`HarmonyServer.prepare_segments`).
 
+A metadata filter (``flt=`` or a request's ``filter``) is a per-batch
+tombstone set: each segment's excluded rows steer probe selection
+(:func:`~repro_torch.core.search.filtered_assign_queries`, widened at low
+selectivity) and are dropped from the executor's gather table, so the
+kernels see only allowed live rows. ``hybrid_text=`` adds the BM25 tier
+and fuses it with the vector top-k by reciprocal-rank fusion.
+
+A segment set to ``"host"`` (``SegmentedIndex.set_tiers``) is served by a
+host-tier executor that streams each batch's probed rows to the card;
+:meth:`HarmonyServer.prepare_placement` builds it off the serving path,
+and :meth:`HarmonyServer.prefetch_batch` stages the next batch's upload.
+
 Load-aware re-planning (a sliding window of recent probes) and elastic
 node failure / join re-plan every segment; results do not change.
 
-Not ported yet: filtered and hybrid search (``flt=``, ``hybrid_text=``,
-which raise ``NotImplementedError``), the scheduled ``serve()`` loop,
-and the host tier's ``prefetch_batch`` / ``prepare_placement``.
+Not ported yet: the scheduled ``serve()`` loop and the placement policy
+(``serve/placement.py``) that chooses the tiers.
 """
 
 from __future__ import annotations
@@ -38,17 +49,27 @@ import numpy as np
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config import HarmonyConfig
-from repro_torch.core.index import DataSnapshot, Segment, SegmentedIndex, assign_queries, preassign
+from repro_torch.core.fusion import BM25Index, reciprocal_rank_fusion, segment_bm25
+from repro_torch.core.index import (
+    DataSnapshot,
+    Segment,
+    SegmentedIndex,
+    assign_queries,
+    meta_rows_to_store,
+    preassign,
+)
 from repro_torch.core.planner import plan_search
-from repro_torch.core.search import delta_topk, harmony_search, merge_topk, two_stage_search
+from repro_torch.core.search import (
+    delta_topk,
+    filter_excluded_rows,
+    filtered_assign_queries,
+    harmony_search,
+    merge_topk,
+    two_stage_search,
+)
 from repro_torch.core.types import DataPlane, Filter, SearchRequest, SearchResult
 from repro_torch.runtime.elastic import ClusterState
 from repro_torch.serve.executor import ExecutorConfig, SpmdExecutor
-
-NOT_PORTED_FILTERS = (
-    "filtered and hybrid search (flt=, hybrid_text=, a request's filter) "
-    "are not ported yet: they come with ROADMAP.md Queue 1 item 9"
-)
 
 
 @dataclass
@@ -427,6 +448,52 @@ class HarmonyServer(DataPlane):
             with self._dp_mu:
                 self._staged[seg.seg_id] = st
 
+    def prepare_placement(self, tiers: Dict[int, str]) -> None:
+        """Pre-build the state of the segments whose tier is about to
+        change (the prepare leg of a placement swap: this, then
+        ``data.set_tiers(tiers)``, then :meth:`adopt`), off the serving
+        path, so the adoption is O(1)."""
+        snap = self.data.snapshot()
+        seg_by_id = {s.seg_id: s for s in snap.segments}
+        for sid, want in tiers.items():
+            seg = seg_by_id.get(sid)
+            if seg is None:
+                continue
+            with self._dp_mu:
+                st = self._seg_states.get(sid)
+                staged = self._staged.get(sid)
+                ready = ((st is not None and st.tier == want)
+                         or (staged is not None and staged.tier == want))
+            if ready:
+                continue
+            new = self._build_state(seg, tier=want)
+            if self.backend == "spmd":
+                self._executor_for(new).warmup(k=self.cfg.topk)
+            with self._dp_mu:
+                self._staged[sid] = new
+
+    def prefetch_batch(self, queries) -> None:
+        """Stage every host-tier segment's candidate upload for the next
+        batch while the current one computes. Advisory: a wrong or missing
+        prefetch is a miss, never a wrong answer. No-op on the host backend
+        or an all-device placement."""
+        if self.backend != "spmd":
+            return
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        snap = self.data.snapshot()
+        if (snap.generation != self._generation
+                or snap.placement_version != self._placement_version):
+            self._sync(snap)
+        with self._dp_mu:
+            states = [self._seg_states.get(s.seg_id) for s in snap.segments]
+        for st in states:
+            if st is None or st.tier != "host":
+                continue
+            probes = assign_queries(st.segment.index, queries)
+            dead = snap.dead_rows[st.segment.seg_id]
+            self._executor_for(st).prefetch(
+                probes=probes, dead_rows=dead if dead.any() else None)
+
     def adopt(self) -> None:
         """Swap to the data plane's current generation and tier placement
         now (otherwise the next batch adopts lazily)."""
@@ -505,6 +572,42 @@ class HarmonyServer(DataPlane):
         self.refresh_plan()
 
     # -------------------------------------------------------------- serving
+    @staticmethod
+    def _delta_allowed(snap: DataSnapshot, flt: Filter) -> np.ndarray:
+        """Allowed mask [delta rows] of the snapshot's delta buffer under
+        ``flt`` (its per-row metadata dicts, made columnar here: the
+        buffer is small by construction)."""
+        n = snap.delta_ids.size
+        store = meta_rows_to_store(list(snap.delta_meta))
+        if store is None:
+            return np.zeros(n, bool)
+        return flt.evaluate(store.tags, store.nums, n)
+
+    @staticmethod
+    def _lexical_topk(snap: DataSnapshot, states, text: str, k: int,
+                      flt: Optional[Filter], delta_live: np.ndarray) -> np.ndarray:
+        """The global BM25 top-k external ids for ``text``, the lexical
+        tier of a hybrid batch (one ``hybrid_text`` for the whole batch).
+        Each sealed segment's posting index scores under the excluded mask
+        the vector tier used; the live delta rows are scored as they are;
+        the candidates merge by score, ties to the lower id."""
+        cands = []                          # (score, ext_id)
+        for st in states:
+            seg = st.segment
+            bm = segment_bm25(seg.index)
+            if bm is None:
+                continue
+            excluded = filter_excluded_rows(seg.index, flt, snap.dead_rows[seg.seg_id])
+            sc, rows = bm.topk(text, k, excluded=excluded)
+            cands += [(float(s), int(e)) for s, e in zip(sc, seg.index.ids[rows])]
+        if snap.delta_ids.size:
+            texts = [(m or {}).get("text") for m in snap.delta_meta]
+            if any(texts):
+                sc, rows = BM25Index(texts).topk(text, k, excluded=~delta_live)
+                cands += [(float(s), int(snap.delta_ids[r])) for s, r in zip(sc, rows)]
+        cands.sort(key=lambda c: (-c[0], c[1]))
+        return np.array([e for _, e in cands[:k]], np.int64)
+
     def search_batch(
         self,
         queries,
@@ -517,7 +620,8 @@ class HarmonyServer(DataPlane):
         """One batch through the engine; records workload + stats.
 
         ``queries`` is a [NQ, D] array or a :class:`SearchRequest` (whose
-        vector/k/precision fields fill the matching parameters). Searches
+        vector/k/filter/hybrid_text/precision fields fill the matching
+        parameters). Searches
         every sealed segment of the current data-plane snapshot
         (tombstone-masked; ``backend="host"`` through the host engine,
         ``backend="spmd"`` through the device-resident executor), scans
@@ -528,9 +632,17 @@ class HarmonyServer(DataPlane):
 
         On the spmd backend every segment, whatever its ids, goes through
         its executor, and ``precision`` (overriding the server's tier per
-        batch) through the segment's executor of that precision. ``flt``
-        and ``hybrid_text`` are not ported yet and raise
-        ``NotImplementedError``."""
+        batch) through the segment's executor of that precision.
+
+        ``flt`` merges the predicate's disallowed rows with each segment's
+        tombstones: probe selection skips clusters with no allowed live
+        row and widens at low selectivity
+        (:func:`~repro_torch.core.search.filtered_assign_queries`), and
+        the executor drops those rows from its gather table, so the step
+        and its bucket keys are the unfiltered ones. ``hybrid_text`` adds
+        the BM25 tier, fused with the vector top-k by reciprocal-rank
+        fusion (the scores are then the negated fused score, and
+        ``stats["fused"]`` is True)."""
         if isinstance(queries, SearchRequest):
             req = queries
             queries = np.atleast_2d(np.asarray(req.vector, np.float32))
@@ -539,8 +651,6 @@ class HarmonyServer(DataPlane):
             hybrid_text = (hybrid_text if hybrid_text is not None
                            else req.hybrid_text)
             precision = precision if precision is not None else req.precision
-        if flt is not None or hybrid_text is not None:
-            raise NotImplementedError(NOT_PORTED_FILTERS)
         backend = backend or self.backend
         if backend not in ("host", "spmd"):
             raise ValueError(f"backend={backend!r}")
@@ -568,9 +678,13 @@ class HarmonyServer(DataPlane):
         seg_results = []
         for st in states:
             seg = st.segment
-            dead = snap.dead_rows[seg.seg_id]
-            dead_arg = dead if dead.any() else None
-            probes = assign_queries(seg.index, queries)
+            dead_arg = filter_excluded_rows(seg.index, flt, snap.dead_rows[seg.seg_id])
+            if flt is None:
+                probes = assign_queries(seg.index, queries)
+            else:
+                # predicate pushdown: clusters with no allowed live row
+                # drop out of probe selection
+                probes = filtered_assign_queries(seg.index, queries, dead_arg)
             # the placement policy's cluster-hotness EWMA sees every
             # segment's probe selection
             self.data.note_probes(seg.seg_id, probes)
@@ -591,11 +705,16 @@ class HarmonyServer(DataPlane):
                 res = harmony_search(
                     seg.index, self._corpus_for(st), queries, k=k,
                     probes=probes, dead_rows=dead_arg,
-                    dead_key=(snap.generation, snap.dead_version),
+                    # the dead-mask cache keys on (generation, dead_version)
+                    # only; a filter changes the mask under the same key
+                    dead_key=None if flt is not None
+                    else (snap.generation, snap.dead_version),
                 )
             seg_results.append(res)
         parts = [(r.scores, r.ids) for r in seg_results]
         delta_live = snap.delta_live
+        if flt is not None and snap.delta_ids.size:
+            delta_live = delta_live & self._delta_allowed(snap, flt)
         if snap.delta_ids.size:
             parts.append(delta_topk(
                 snap.delta_x, snap.delta_ids, delta_live,
@@ -620,12 +739,24 @@ class HarmonyServer(DataPlane):
                 "delta_candidates": int(delta_live.sum()),
                 "generation": snap.generation,
             })
-        res.stats["cold_segments"] = sum(
-            int(r.stats.get("cold", 0)) for r in seg_results)
+        if hybrid_text is not None:
+            lex = self._lexical_topk(snap, states, hybrid_text, k, flt, delta_live)
+            ranked = [res.ids]
+            if lex.size:
+                ranked.append(np.broadcast_to(lex, (queries.shape[0], lex.size)))
+            f_scores, f_ids = reciprocal_rank_fusion(ranked, k)
+            res = SearchResult(ids=f_ids, scores=f_scores,
+                               stats={**res.stats, "fused": True})
+        cold_n = sum(int(r.stats.get("cold", 0)) for r in seg_results)
+        res.stats["cold_segments"] = cold_n
         res.stats["bytes_streamed"] = sum(
             int(r.stats.get("bytes_streamed", 0)) for r in seg_results)
         res.stats["prefetch_hits"] = sum(
             int(r.stats.get("prefetch_hits", 0)) for r in seg_results)
+        if cold_n:
+            self.stats.cold_batches += 1
+            self.stats.bytes_streamed += res.stats["bytes_streamed"]
+            self.stats.prefetch_hits += res.stats["prefetch_hits"]
         dt = time.perf_counter() - t0
         res.stats["wall_s"] = dt
         if backend == "spmd":

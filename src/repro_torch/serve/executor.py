@@ -1,6 +1,6 @@
-"""Device-resident batched search executor on one GPU.
+"""Batched search executor on one GPU.
 
-The port of ``repro/serve/executor.py`` for ``tier="device"``, in both
+The port of ``repro/serve/executor.py``, in both tiers and both
 precisions:
 
 * **Corpus residency** — the sharded corpus, per-block norms, cluster ids
@@ -11,6 +11,16 @@ precisions:
   uploaded as the device's one copy of the sharded rows, beside the
   index's own ``x``. A batch moves only its queries, probe table, τ seeds
   and an int32 row-index table to the device.
+* **Host tier** (``tier="host"``) — for a demoted segment nothing stays on
+  the card: the packed arrays live in pinned host memory, and per batch
+  only the probed rows are gathered on the host
+  (:func:`repro_torch.core.pipeline.gather_host_candidates`) into a fixed
+  candidate buffer set of the batch's cap bucket, then copied with
+  ``non_blocking=True`` on a side CUDA stream; the ring's stream waits on
+  the copy's event before its first launch. :meth:`SpmdExecutor.prefetch`
+  stages the next batch's upload (two slots, keyed on the gather table)
+  while the current one computes. The gathered values, the buckets and
+  the kernels are the device tier's, so results are bit-identical.
 * **Candidate gather** — probed clusters are contiguous row ranges of the
   resident shards, so the host computes a per-shard row-index union
   (tombstones dropped) and the device gathers those rows into a padded
@@ -24,6 +34,10 @@ precisions:
   pre-scaled norms and each block's s²; the ring keeps the quantized
   top ``K' = k·rerank_factor`` and :meth:`SpmdExecutor._rerank` rescores
   those survivors exactly in fp32 on the card, against ``index.x``.
+* **bf16 rows** (``x_dtype="bfloat16"``, fp32 precision) — the resident
+  rows are rounded to bf16 (half the bytes) and the distance kernel's bf16
+  route widens them to f32; queries, norms and sums stay f32, and the τ
+  prewarm scores the rounded rows, so pruning is exact over them.
 
 Exactness: padding adds rows whose cluster id is -1 (match no probe) and
 queries whose τ is -inf (everything prunes). Pruning is off for
@@ -48,6 +62,7 @@ from repro_torch.core.pipeline import (
     SpmdConfig,
     build_corpus_arrays,
     build_query_arrays,
+    gather_host_candidates,
     gather_local_candidates,
     resident_arrays,
     ring_chunk_search,
@@ -68,8 +83,9 @@ class ExecutorConfig:
     ladder is chunk·2^i up to the full shard capacity. ``precision`` is
     ``"fp32"`` or ``"int8"`` (quantized stage 1 keeping
     ``k·rerank_factor`` rows, then an exact fp32 re-rank; L2 only).
-    ``use_pallas`` and ``x_dtype`` are kept for signature parity; values
-    the port does not carry raise ``NotImplementedError``.
+    ``x_dtype`` is ``"float32"`` or ``"bfloat16"`` (fp32 precision's
+    resident rows). ``use_pallas`` is kept for signature parity;
+    ``False`` raises ``NotImplementedError``.
     """
 
     d_blocks: int = 1
@@ -85,11 +101,49 @@ class ExecutorConfig:
     prune: Optional[bool] = None    # None → index.cfg.enable_pruning (L2 only)
 
 
+_CAND = ("x_c", "xn2_c", "cl_c", "id_c")
+
+
+class _CandBuffers:
+    """One fixed candidate buffer set of a host-tier executor's cap bucket:
+    pinned host arrays the gather writes, device arrays the ring reads
+    (their addresses never move), and the events that order their reuse:
+    ``copied`` on the side stream after the upload (the ring waits on it),
+    ``consumed`` on the ring's stream after the step (the next upload into
+    the set waits on it). ``held`` while a staged or in-flight upload owns
+    the set."""
+
+    def __init__(self, shapes: Dict[str, Tuple[tuple, torch.dtype]],
+                 device: torch.device, side: Optional["torch.cuda.Stream"]):
+        cuda = device.type == "cuda"
+        self.host = {n: torch.empty(sh, dtype=dt, pin_memory=cuda)
+                     for n, (sh, dt) in shapes.items()}
+        self.dev = {n: torch.empty(sh, dtype=dt, device=device)
+                    for n, (sh, dt) in shapes.items()}
+        if side is not None:
+            for t in self.dev.values():
+                t.record_stream(side)
+        self.started = torch.cuda.Event(enable_timing=True) if cuda else None
+        self.copied = torch.cuda.Event(enable_timing=True) if cuda else None
+        self.consumed = None
+        self.held = False
+
+
+@dataclass
+class _Upload:
+    """A candidate upload: the buffer set it fills and the bytes it moves."""
+
+    buf: _CandBuffers
+    nbytes: int
+
+
 class SpmdExecutor:
-    """Batched search over the device-resident ring pipeline.
+    """Batched search over the ring pipeline.
 
     ``mesh`` is the virtual geometry ``(V, B)``, by default
     ``(1, cfg.d_blocks)``; all of it runs on ``device`` (CUDA by default).
+    ``tier="device"`` keeps the packed corpus on the device; ``"host"``
+    keeps it in (pinned) host memory and streams each batch's probed rows.
     """
 
     def __init__(
@@ -100,8 +154,8 @@ class SpmdExecutor:
         tier: str = "device",
         device: DeviceLike = None,
     ):
-        if tier != "device":
-            raise NotImplementedError(f"tier={tier!r}")
+        if tier not in ("device", "host"):
+            raise ValueError(f"tier={tier!r}")
         self.tier = tier
         self.index = index
         self.cfg = cfg or ExecutorConfig()
@@ -175,7 +229,26 @@ class SpmdExecutor:
             index.nb, dtype=np.int32)
         arrays["row_ids"] = torch.as_tensor(pos, device=arrays["row_ids"].device)
         packed = resident_arrays(arrays, self._base_scfg)
-        self._resident = {name: a.to(self.device) for name, a in packed.items()}
+        self._scale2 = (packed["scale2"].to(self.device)
+                        if "scale2" in packed else None)
+        self._side: Optional[torch.cuda.Stream] = None
+        if tier == "device":
+            self._resident = {name: a.to(self.device) for name, a in packed.items()}
+            self._host_arrays = None
+        else:
+            # the cold tier: nothing stays on the card but s² (B floats)
+            pin = self.device.type == "cuda"
+            self._resident = None
+            self._host_arrays = {
+                name: (a.cpu().pin_memory() if pin else a.cpu())
+                for name, a in packed.items() if name != "scale2"}
+            if pin:
+                self._side = torch.cuda.Stream(device=self.device)
+        del arrays, packed                   # the host tier's device copies go
+        # host tier: candidate buffer sets per cap bucket, and the
+        # prefetch queue (two slots, keyed on the gather table)
+        self._cand_pool: Dict[int, list] = {}
+        self._prefetched: Dict[tuple, _Upload] = {}
 
         # step cache: (qb, cap, k, nprobe) → step; trace_counts counts builds
         self._steps: Dict[Tuple[int, int, int, int], object] = {}
@@ -186,6 +259,13 @@ class SpmdExecutor:
         self.wall_s = 0.0
         self.tile_skipped = 0
         self.tile_total = 0
+        # host-tier counters (always 0 for a device-tier executor)
+        self.cold_dispatches = 0
+        self.bytes_streamed = 0
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self.prefetch_staged = 0
+        self.upload_ms = 0.0
 
     def warmup(self, k: Optional[int] = None, nprobe=None):
         """Build and run every (qb, cap) bucket once, for each probe-table
@@ -214,7 +294,16 @@ class SpmdExecutor:
                         np.full((1,), np.inf, np.float32),
                         quant_grid=self._quant_grid,
                     )
-                    step(rows, qarr)
+                    if self.tier == "host":
+                        up = self._upload_candidates(rows, cap)
+                        step(up, qarr)
+                        up.buf.held = False
+                    else:
+                        step(rows, qarr)
+        if self.tier == "host":
+            # the ladder's buffer sets go; serving makes those it uses
+            self._cand_pool = {cap: [b for b in sets if b.held]
+                               for cap, sets in self._cand_pool.items()}
 
     def _k_step(self, k: int) -> int:
         """The ring's K: k, or the int8 tier's K' = k·rerank_factor.
@@ -278,26 +367,127 @@ class SpmdExecutor:
 
     def _make_step(self, bscfg: SpmdConfig, key):
         """One bucket's step: upload the batch's tables, gather the probed
-        rows on the device and run the ring. Building it is this port's
-        counterpart of a jit trace, counted once per key."""
+        rows on the device (device tier) or wait for their upload (host
+        tier: ``src`` is the :class:`_Upload`), and run the ring. Building
+        it is this port's counterpart of a jit trace, counted once per
+        key."""
         self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
-        res, dev = self._resident, self.device
+        # the closure holds no reference to the executor, so dropping the
+        # executor frees its device arrays at once (no reference cycle)
+        res, dev, scale2 = self._resident, self.device, self._scale2
+        host = self.tier == "host"
 
-        def step(rows: np.ndarray, qarr: dict):
-            rows_t = torch.as_tensor(rows.astype(np.int64)).to(dev)
-            x_c, xn2_c, cl_c, id_c = gather_local_candidates(
-                rows_t, res["x_blk"], res["xn2_blk"], res["cluster_ids"],
-                res["row_ids"],
-            )
-            return ring_chunk_search(
-                bscfg, x_c, xn2_c, cl_c, id_c,
+        def step(src, qarr: dict):
+            if host:
+                buf = src.buf
+                if buf.copied is not None:
+                    torch.cuda.current_stream(dev).wait_event(buf.copied)
+                cand = [buf.dev[n] for n in _CAND]
+            else:
+                rows_t = torch.as_tensor(src.astype(np.int64)).to(dev)
+                cand = gather_local_candidates(
+                    rows_t, res["x_blk"], res["xn2_blk"], res["cluster_ids"],
+                    res["row_ids"],
+                )
+            out = ring_chunk_search(
+                bscfg, *cand,
                 torch.as_tensor(qarr["queries"]).to(dev),
                 torch.as_tensor(qarr["probes"]).to(dev),
                 torch.as_tensor(qarr["tau0"]).to(dev),
-                scale2=res.get("scale2"),
+                scale2=scale2,
             )
+            if host and buf.copied is not None:
+                buf.consumed = torch.cuda.Event()
+                buf.consumed.record(torch.cuda.current_stream(dev))
+            return out
 
         return step
+
+    # ---------------------------------------------------- host-tier stream
+    def _buffers(self, cap_b: int) -> _CandBuffers:
+        """A buffer set of the cap bucket that no staged upload holds. A
+        new set is made when all are held (at most the two prefetch slots
+        and the batch in flight), and the free sets of other cap buckets
+        are dropped first: the device holds the sets of the buckets in
+        use, not the ladder's."""
+        pool = self._cand_pool.setdefault(cap_b, [])
+        for buf in pool:
+            if not buf.held:
+                return buf
+        for cap, sets in self._cand_pool.items():
+            if cap != cap_b:
+                sets[:] = [b for b in sets if b.held]
+        x = self._host_arrays["x_blk"]
+        V, B, _, db = x.shape
+        buf = _CandBuffers(dict(
+            x_c=((V, B, cap_b, db), x.dtype),
+            xn2_c=((V, B, cap_b), torch.float32),
+            cl_c=((V, cap_b), torch.int32),
+            id_c=((V, cap_b), torch.int32),
+        ), self.device, self._side)
+        pool.append(buf)
+        return buf
+
+    def _upload_candidates(self, rows: np.ndarray, cap_b: int) -> _Upload:
+        """Gather the probed rows on the host into a buffer set of the
+        cap bucket and start their copy to the device on the side stream
+        (on the CPU: a plain copy). The set is held until the batch that
+        consumes it has run."""
+        buf = self._buffers(cap_b)
+        buf.held = True
+        if buf.copied is not None:
+            buf.copied.synchronize()          # its previous copy has left
+        gather_host_candidates(self._host_arrays, rows, out=buf.host)
+        nbytes = sum(buf.host[n].nbytes for n in _CAND)
+        if self._side is None:
+            for n in _CAND:
+                buf.dev[n].copy_(buf.host[n])
+        else:
+            with torch.cuda.stream(self._side):
+                if buf.consumed is not None:
+                    self._side.wait_event(buf.consumed)
+                buf.started.record(self._side)
+                for n in _CAND:
+                    buf.dev[n].copy_(buf.host[n], non_blocking=True)
+                buf.copied.record(self._side)
+        return _Upload(buf=buf, nbytes=nbytes)
+
+    def prefetch(
+        self,
+        queries: Optional[np.ndarray] = None,
+        probes: Optional[np.ndarray] = None,
+        dead_rows: Optional[np.ndarray] = None,
+        nprobe: Optional[int] = None,
+    ) -> None:
+        """Stage the next batch's candidate upload while the current batch
+        computes. No-op on a device-tier executor.
+
+        The staged upload is keyed on the gather table itself, so the
+        later :meth:`search_batch` recognizes its own candidate set however
+        the batch was predicted; a wrong prediction is a miss (the
+        dispatch uploads then), never a wrong answer. Two slots."""
+        if self.tier != "host":
+            return
+        if probes is None:
+            if queries is None:
+                return
+            queries = np.asarray(queries, np.float32)
+            if queries.ndim == 1:
+                queries = queries[None]
+            probes = assign_queries(self.index, queries, nprobe)
+        max_qb = self.qb_buckets[-1]
+        for lo in range(0, probes.shape[0], max_qb):
+            rows, cap_b = self._gather_rows(probes[lo:lo + max_qb], dead_rows)
+            if cap_b == 0:
+                continue
+            key = (rows.tobytes(), cap_b)
+            if key in self._prefetched:
+                continue
+            self._prefetched[key] = self._upload_candidates(rows, cap_b)
+            self.prefetch_staged += 1
+            while len(self._prefetched) > 2:          # two slots
+                old = self._prefetched.pop(next(iter(self._prefetched)))
+                old.buf.held = False
 
     # ------------------------------------------------------------- serving
     def search_batch(
@@ -343,9 +533,10 @@ class SpmdExecutor:
                     "splits": len(parts),
                     "precision": self.precision,
                     "rerank_k": max(p.stats["rerank_k"] for p in parts),
-                    "cold": 0,
-                    "bytes_streamed": 0,
-                    "prefetch_hits": 0,
+                    "cold": max(p.stats["cold"] for p in parts),
+                    "bytes_streamed": sum(p.stats["bytes_streamed"] for p in parts),
+                    "prefetch_hits": sum(p.stats["prefetch_hits"] for p in parts),
+                    "upload_ms": sum(p.stats["upload_ms"] for p in parts),
                 },
             )
 
@@ -370,7 +561,8 @@ class SpmdExecutor:
                     "tile_skipped": 0, "tile_total": 0, "pad_queries": 0,
                     "compiled": False, "splits": 1,
                     "precision": self.precision, "rerank_k": 0,
-                    "cold": 0, "bytes_streamed": 0, "prefetch_hits": 0,
+                    "cold": int(self.tier == "host"), "bytes_streamed": 0,
+                    "prefetch_hits": 0, "upload_ms": 0.0,
                 },
             )
         int8 = self.precision == "int8"
@@ -380,7 +572,9 @@ class SpmdExecutor:
         tau0 = (
             prewarm_tau(self.index, queries, probes, k,
                         self.index.cfg.prewarm_samples, self.metric,
-                        dead_rows=dead_rows)
+                        dead_rows=dead_rows,
+                        rows_dtype=(torch.bfloat16 if self.cfg.x_dtype == "bfloat16"
+                                    else None))
             if self.prune and not int8
             else np.full((nq,), np.inf, np.float32)
         )
@@ -400,9 +594,29 @@ class SpmdExecutor:
                                   quant_grid=self._quant_grid)
         compiles_before = self.compiles
         step = self._get_step(bscfg)
-        gs, gi, st = step(rows, qarr)
+        cold_bytes, pf_hit, up = 0, 0, None
+        if self.tier == "host":
+            up = self._prefetched.pop((rows.tobytes(), cap_b), None)
+            if up is not None:
+                pf_hit = 1
+                self.prefetch_hits += 1
+            else:
+                up = self._upload_candidates(rows, cap_b)
+                self.prefetch_misses += 1
+            cold_bytes = up.nbytes
+            self.cold_dispatches += 1
+            self.bytes_streamed += cold_bytes
+            gs, gi, st = step(up, qarr)
+        else:
+            gs, gi, st = step(rows, qarr)
         scores = gs[:nq].cpu().numpy()
         rows_k = gi[:nq].cpu().numpy().astype(np.int64)
+        upload_ms = 0.0
+        if up is not None:
+            up.buf.held = False
+            if up.buf.copied is not None:
+                upload_ms = up.buf.started.elapsed_time(up.buf.copied)
+                self.upload_ms += upload_ms
         rows_k[~np.isfinite(scores)] = -1
         if int8:
             scores, rows_k = self._rerank(queries, scores, rows_k, k)
@@ -428,9 +642,10 @@ class SpmdExecutor:
                 "splits": 1,
                 "precision": self.precision,
                 "rerank_k": k_step if int8 else 0,
-                "cold": 0,
-                "bytes_streamed": 0,
-                "prefetch_hits": 0,
+                "cold": int(self.tier == "host"),
+                "bytes_streamed": cold_bytes,
+                "prefetch_hits": pf_hit,
+                "upload_ms": upload_ms,
             },
         )
 
@@ -470,11 +685,12 @@ class SpmdExecutor:
         return {
             "precision": self.precision,
             "tier": self.tier,
-            "cold_dispatches": 0,
-            "bytes_streamed": 0,
-            "prefetch_hits": 0,
-            "prefetch_misses": 0,
-            "prefetch_staged": 0,
+            "cold_dispatches": self.cold_dispatches,
+            "bytes_streamed": self.bytes_streamed,
+            "prefetch_hits": self.prefetch_hits,
+            "prefetch_misses": self.prefetch_misses,
+            "prefetch_staged": self.prefetch_staged,
+            "upload_ms": self.upload_ms,
             "dispatches": self.dispatches,
             "queries": self.queries,
             "wall_s": self.wall_s,

@@ -237,7 +237,8 @@ def test_elastic_replan_and_counters(anns):
 def test_precision_override_and_requests(anns, monkeypatch):
     """A per-batch precision override on spmd is served by the segment's
     executor of that precision, built on first use (the reference serves
-    it on its host path); the host engine is never reached."""
+    it on its host path); the host engine is never reached. Requests,
+    filters and hybrid text equal the reference's."""
     ds, cfg, q = anns
     r, t = pair(RSegmented.build(ds.x, cfg), "spmd", "fp32")
 
@@ -265,11 +266,24 @@ def test_precision_override_and_requests(anns, monkeypatch):
     got = t.search_batch(rq)
     want = r.search_batch(RRequest(vector=q[0], k=3, precision="int8"))
     assert_matches_oracle(got, want)
-    for bad in (dict(flt=TagIn("color", (1,))), dict(hybrid_text="doc")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            t.search_batch(q, **bad)
-    with pytest.raises(NotImplementedError, match="filtered"):
-        t.search_batch(SearchRequest(vector=q[0], filter=TagIn("c", (1,))))
+    # a filter, hybrid text and a request's filter are served, as the
+    # reference serves them (rows with metadata in the delta; the sealed
+    # segment has none, so the filter excludes all of it)
+    meta = {"color": np.arange(16) % 2,
+            "text": [f"doc {'red' if i % 3 else 'blue'} {i}" for i in range(16)]}
+    for srv in (r, t):
+        srv.upsert(np.arange(9000, 9016), q[:16] + 0.01, meta=meta)
+    flt = TagIn("color", (1,))
+    same(t, r, q, flt=flt)
+    for kw in (dict(hybrid_text="red doc"), dict(flt=flt, hybrid_text="blue")):
+        tr, rr = same(t, r, q, **kw)
+        assert tr.stats["fused"] and rr.stats["fused"]
+        np.testing.assert_array_equal(tr.ids, rr.ids)
+    from repro.core import TagIn as RTagIn
+    got = t.search_batch(SearchRequest(vector=q[0], filter=flt))
+    want = r.search_batch(RRequest(vector=q[0], filter=RTagIn("color", (1,))))
+    assert_matches_oracle(got, want)
+    assert set(got.ids[got.ids >= 0].tolist()) <= set(range(9001, 9016, 2))
     with pytest.raises(ValueError):
         HarmonyServer(t.data, n_nodes=2, backend="tpu", device="cpu")
 

@@ -100,11 +100,18 @@ def test_unsupported_options_raise():
     x = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     cfg = HarmonyConfig(dim=8, nlist=4, nprobe=2, topk=3, kmeans_iters=2)
     index = build_ivf(x, cfg, device="cpu")
-    for kw in (dict(x_dtype="bfloat16"), dict(use_pallas=False)):
+    for kw in (dict(x_dtype="float16"), dict(use_pallas=False)):
         with pytest.raises(NotImplementedError):
             SpmdExecutor(index, ExecutorConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        SpmdExecutor(index, tier="host", device="cpu")
+    with pytest.raises(ValueError, match="tier"):
+        SpmdExecutor(index, tier="warm", device="cpu")
+    # bf16 rows and the host tier are served, as the reference serves them
+    # (their parity: test_torch_bf16.py, test_torch_tiered.py)
+    want = SpmdExecutor(index, device="cpu").search_batch(x[:4])
+    for kw in (dict(cfg=ExecutorConfig(x_dtype="bfloat16")), dict(tier="host")):
+        got = SpmdExecutor(index, device="cpu", **kw).search_batch(x[:4])
+        np.testing.assert_array_equal(got.ids[:, 0], np.arange(4))
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-2, atol=1e-2)
     # the int8 tier is L2-only, as the reference asserts
     ip_index = build_ivf(x, cfg.replace(metric="ip"), device="cpu")
     with pytest.raises(ValueError, match="L2"):

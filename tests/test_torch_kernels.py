@@ -329,7 +329,10 @@ TOPK_CASES = [(1, 8, 4, "uniform"), (8, 64, 10, "uniform"), (13, 100, 5, "unifor
               (16, 256, 10, "path"), (8, 64, 40, "run_last"), (4, 256, 40, "finite_chunk"),
               (8, 64, 10, "finite_chunk"), (10, 10, 10, "uniform"), (4, 40, 40, "uniform"),
               # K above 64: the int8 ring at k = 20 (K' = 80) and the limit, 256
-              (4, 96, 80, "uniform"), (2, 256, 256, "uniform"), (2, 256, 256, "finite_chunk")]
+              (4, 96, 80, "uniform"), (2, 256, 256, "uniform"), (2, 256, 256, "finite_chunk"),
+              # K above 256, the CUDA kernel's second route: the int8 ring at
+              # k = 65 (K' = 260 > 257), and K = 512
+              (4, 300, 257, "uniform"), (2, 64, 512, "uniform")]
 
 
 @pytest.mark.parametrize("m,c,k,kind", [
@@ -392,6 +395,8 @@ def test_ops_on_cpu_use_plain_versions_only():
     assert counts == {"partial_distance_update": 0,
                       "int8_partial_distance_update": 0,
                       "running_topk_update": 0,
+                      "partial_distance_update_bf16": 0,
+                      "running_topk_update_large_k": 0,
                       "partial_distance_update_ref": 1,
                       "int8_partial_distance_update_ref": 1,
                       "running_topk_ref": 1}
@@ -406,8 +411,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         distance.partial_distance_update(*_t(*_mk(4, 8, 16)))
     with pytest.raises(ValueError, match="CUDA"):
         topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 3)), k=3)
+    k = topk_update.MAX_K + 1
     with pytest.raises(ValueError, match="k="):
-        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 257)), k=257)
+        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, k)), k=k)
     x, xn2, q, qn2, s2, acc, tau = _mk_int8(4, 8, 16)
     args = (*_t(x, xn2, q, qn2), torch.tensor(s2), *_t(acc, tau))
     with pytest.raises(ValueError, match="CUDA"):
@@ -418,37 +424,42 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_topk_limits_raise_before_any_launch():
-    """The top-K kernel takes K <= 256 and C <= 4096; the executor (its
-    ring's K, k·rerank_factor in the int8 tier) and the fused merge check
-    that before any launch, on every device, with no switch to the plain
-    version."""
+    """The top-K kernel takes any C and K <= MAX_K = 12288, the most that
+    route 2's shared memory holds (16 K + 8 W bytes with a 2048-column
+    window: 212 KB of the H100's 227 KB). The executor (its ring's K,
+    k·rerank_factor in the int8 tier) and the fused merge check that
+    before any launch, on every device, with no switch to the plain
+    version; below it they serve, and K > 256 takes route 2."""
     from repro_torch.config import HarmonyConfig
     from repro_torch.core import build_ivf, merge_topk
     from repro_torch.serve import ExecutorConfig, SpmdExecutor
 
-    assert (topk_update.MAX_K, topk_update.MAX_C) == (256, 4096)
-    topk_update.check_limits(256, 4096)
-    for k, c in ((0, 8), (257, 8), (10, 0), (10, 4097)):
-        with pytest.raises(ValueError, match="256" if k in (0, 257) else "4096"):
+    assert (topk_update.MAX_K, topk_update.MAX_C) == (12288, 2 ** 31 - 1)
+    assert 16 * topk_update.MAX_K + 8 * 2048 <= 232_448
+    assert [topk_update.route(k) for k in (1, 256, 257, 4096)] == [1, 1, 2, 2]
+    topk_update.check_limits(12288, 2 ** 31 - 1)
+    for k, c in ((0, 8), (12289, 8), (10, 0), (10, 2 ** 31)):
+        with pytest.raises(ValueError, match="12288" if k in (0, 12289) else "C="):
             topk_update.check_limits(k, c)
-    with pytest.raises(ValueError, match="C=4097"):
+    with pytest.raises(ValueError, match="CUDA"):     # C past 4096 is taken
         topk_update.running_topk_update(*_t(*_mk_topk(2, 4097, 8)), k=8)
     x = np.random.default_rng(0).normal(size=(600, 8)).astype(np.float32)
     cfg = HarmonyConfig(dim=8, nlist=4, nprobe=2, topk=5, kmeans_iters=2)
     index = build_ivf(x, cfg, device="cpu")
     ops.reset_launch_counts()
     int8 = SpmdExecutor(index, ExecutorConfig(precision="int8"), device="cpu")
-    assert int8.search_batch(x[:2], k=64).stats["rerank_k"] == 256
+    assert int8.search_batch(x[:2], k=65).stats["rerank_k"] == 260
+    assert int8.search_batch(x[:2], k=150).stats["rerank_k"] == 600    # K' = nb
+    assert SpmdExecutor(index, device="cpu").search_batch(x[:2], k=257).ids.shape == (2, 257)
     calls = ops.launch_counts()["running_topk_ref"]
-    with pytest.raises(ValueError, match="256"):          # K' = 65 * 4 = 260
-        int8.search_batch(x[:2], k=65)
-    with pytest.raises(ValueError, match="256"):
-        SpmdExecutor(index, device="cpu").search_batch(x[:2], k=257)
-    with pytest.raises(ValueError, match="256"):
-        int8.warmup(k=65)
-    with pytest.raises(ValueError, match="256"):
-        merge_topk([(np.zeros((2, 300), np.float32), np.zeros((2, 300), np.int64))],
-                   300, fused=True, device="cpu")
+    fp32 = SpmdExecutor(index, device="cpu")
+    with pytest.raises(ValueError, match="12288"):
+        fp32.search_batch(x[:2], k=12289)
+    with pytest.raises(ValueError, match="12288"):
+        fp32.warmup(k=12289)
+    with pytest.raises(ValueError, match="12288"):
+        merge_topk([(np.zeros((2, 8), np.float32), np.zeros((2, 8), np.int64))],
+                   12289, fused=True, device="cpu")
     assert ops.launch_counts()["running_topk_ref"] == calls
 
 
@@ -471,6 +482,46 @@ def test_cuda_topk_above_64_and_merge_shapes():
                     gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
                     ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
                     assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
+
+
+@pytest.mark.cuda
+def test_cuda_large_k_route_and_bf16_rows():
+    """The top-K kernel's route 2 (K > 256: one CTA a row, the list in
+    shared memory, C in windows of 2048) bit-equal to the plain version,
+    up to its limit; and the distance kernel's bf16-row route against its
+    plain version at the f32 route's rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    cases = [(130, c, k) for k in (257, 320, 1024, 4096) for c in (256, 4096, 8192)]
+    cases += [(1, 300, 300), (128, 300, 300), (2, 100, topk_update.MAX_K)]
+    for m, c, k in cases:
+        for kind in ("uniform", "path", "run_last", "finite_chunk"):
+            for run_filled in (True, False):
+                s, ids, rs, ri = (a.to(dev) for a in _t(*_mk_topk(
+                    m, c, k, seed=m + c + k, kind=kind, run_filled=run_filled,
+                    ties=kind == "uniform")))
+                for ids_form in (ids, ids[0].expand(m, c)):
+                    gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
+                    ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
+                    assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
+    assert ops.launch_counts()["running_topk_update_large_k"] == \
+        ops.launch_counts()["running_topk_update"] > 0
+    for m, n, d, tm, tn, tk in [(128, 256, 128, 128, 128, 128), (64, 256, 64, 128, 128, 128),
+                                (130, 257, 96, 32, 64, 32), (64, 256, 30, 4, 100, 128)]:
+        for metric in ("l2", "ip"):
+            x, xn2, q, qn2, acc, tau = _mk(m, n, d, seed=m + d, dead_tile=slice(128, 256))
+            xb = torch.from_numpy(x).to(torch.bfloat16)
+            xn2 = (xb.float() ** 2).sum(1)
+            arrs = [a.to(dev) for a in (xb, xn2, *_t(q, qn2, acc, tau))]
+            got, skip = distance.partial_distance_update(
+                *arrs, metric=metric, tile_m=tm, tile_n=tn, tile_k=tk)
+            want = ref.partial_distance_update_ref(*arrs, metric=metric, tile_k=tk)
+            assert_distance_close(got.cpu().numpy(), want.cpu().numpy(),
+                                  arrs[5].cpu().numpy())
+            assert torch.equal(skip, ops._tile_skip_map(arrs[4], tm, tn))
+    assert ops.launch_counts()["partial_distance_update_bf16"] == 8
 
 
 def test_kernel_modules_import_without_building():
