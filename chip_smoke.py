@@ -60,7 +60,9 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
 6. Large k (``serve_engine_large_k``): on the plane phase 5 left, an fp32
    server at k = 300 and an int8 server at k = 100 (K' = 400), each
    against ``engine_oracle``, every K > 256 launch on the top-K kernel's
-   route 2 (``running_topk_update_large_k``).
+   route 2 (``running_topk_update_large_k``). Then k above 12288
+   (``serve_engine_huge_k``): 8 queries at k = 12289 (fp32) and k = 3073
+   (int8, K' = 12292) on route 3 (``running_topk_update_huge_k``).
 7. bf16 rows (``serve_bf16``): an executor with ``x_dtype="bfloat16"`` on
    the 1×1 mesh against an exact oracle over the bf16-rounded corpus; it
    must hold under 0.6× the fp32 executor's device memory.
@@ -75,13 +77,31 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
    third the second again without) equal to the device tier's bit for
    bit, then promoted back.
 
-The kernel checks of phase 2 also hold the top-K kernel's route 2 (K in
-{320, 512, 1024, 4096} × C in {256, 4096, 8192}, the merge at k = 300) bit
-for bit, and the distance kernel's bf16-row route at the f32 route's rule;
-phase 2's timing covers both routes. Each of phases 3–9 resets the launch
-counts before it and reads them after it.
+10. Durability (``durable``, ``durable_torn``), on the plane phases 5–6
+    left: a WAL (``sync=True``) under ``build/``, a write burst, a
+    checkpoint, a burst in the WAL only; a "crash" that drops the server
+    and the plane (the card's memory must fall), ``recover_segmented_index``
+    onto the card and a fresh server, whose 128-query batch must equal the
+    pre-crash batch bit for bit and ``engine_oracle``; then a write torn
+    mid-record, a second crash and recovery, equal to the oracle of every
+    write but the torn one.
+11. The compactor (``compactor``) on the recovered plane: a seal
+    (``delta_full``), a merge of every segment into one (the retired
+    executors must be freed at the adopt), a crash at ``compactor.commit``
+    rolled forward by ``recover()``, and a cycle on the background thread
+    while batches are served; each step's batch against ``engine_oracle``.
+12. Placement (``placement``): ``plan_placement`` at 25 % of the plane's
+    ``segment_device_bytes``, ``apply_placement``; a batch bit-identical to
+    the device tier's, and the memory report beside the card's memory.
 
-10. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+The kernel checks of phase 2 also hold the top-K kernel's route 2 (K in
+{320, 512, 1024, 4096} × C in {256, 4096, 8192}, the merge at k = 300) and
+route 3 (K in {12289, 16384, 20000} × C in {256, 4096, 12289}, and the
+served shapes) bit for bit, and the distance kernel's bf16-row route at the
+f32 route's rule; phase 2's timing covers every route. Each of phases 3–12
+resets the launch counts before it and reads them after it.
+
+13. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -90,8 +110,10 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -334,6 +356,25 @@ def check_kernels(dev):
             n_checked += 1
             n_big += k > topk_update.WARP_MAX_K
     errs["running_topk_update_large_k"] = 0.0
+    # route 3 (K > 12288: one CTA a row, the list in global memory, merged
+    # window by window through a scratch list): the served fp32 k = 12289
+    # and int8 K' = 12292 and beyond, C within one window, past it, and at
+    # the served merge's C = K
+    n_huge = 0
+    huge_shapes = [(3, c, k) for k in (12289, 16384, 20000) for c in (256, 4096, 12289)]
+    huge_shapes += [(8, 256, 12292), (8, 12289, 12289)]
+    for m, c, k in huge_shapes:
+        for kind in TOPK_KINDS:
+            a = [t(v) for v in mk_topk_branch(rng, m, c, k, kind)]
+            for ids in (a[1], a[1][0].expand(m, c)):
+                gs, gi = topk_update.running_topk_update(a[0], ids, a[2], a[3], k=k)
+                ws, wi = ref.running_topk_ref(a[0], ids, a[2], a[3], k=k)
+                torch.cuda.synchronize()
+                assert torch.equal(gs, ws) and torch.equal(gi, wi), \
+                    f"running_topk route 3 differs at {(m, c, k, kind)}, ids stride {ids.stride(0)}"
+            n_checked += 1
+            n_huge += 1
+    errs["running_topk_update_huge_k"] = 0.0
     # bf16 rows at the ring's shapes (M = QG = 128 / 64 at Db = 128 / 64,
     # N = 256), with and without a dead tile, then ragged tiles, chunked and
     # unaligned contractions (the element-wise staging path); held at the
@@ -368,6 +409,7 @@ def check_kernels(dev):
             bit_equal += bool(torch.equal(got, want))
             n_checked += 1
     log(phase="kernels_checked", cases=n_checked, large_k_topk_cases=n_big,
+        huge_k_topk_cases=n_huge,
         bf16_distance_cases=2 * len(bf16_cases), bf16_bit_equal=bit_equal,
         max_abs_err=errs)
     return errs, n_checked
@@ -579,6 +621,21 @@ def time_kernels(dev, smi):
             run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
         row = time_topk(rng, dev, s, run_s, label, smi, route=2)
         timed.setdefault("running_topk_update_large_k", row)
+    # route 3 (K > 12288) at M = 8 (the served huge-k batch), C = 256 (the
+    # ring's chunk), K = 16384, then the served shapes: the ring at the
+    # int8 K' = 12292 and the merge of a k = 12289 batch
+    for (m, c, k, label, first) in ((8, 256, 16384, "ring_K16384", False),
+                                    (8, 256, 12292, "ring_int8_k3073", False),
+                                    (8, 12289, 12289, "merge_first_k12289", True)):
+        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        if first:
+            s = np.sort(s, axis=1)
+            run_s = np.full((m, k), np.inf, np.float32)
+        else:
+            run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
+        row = time_topk(rng, dev, s, run_s, label, smi, route=3)
+        timed.setdefault("running_topk_update_huge_k", row)
     return timed
 
 
@@ -609,7 +666,8 @@ def time_topk(rng, dev, s, run_s, label, smi, **extra):
     nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
     # operations: each list entry and candidate compared at least once
     b, by = bound_ms(nbytes, m * (k + c))
-    name = "running_topk_update" if k <= topk_update.WARP_MAX_K else "running_topk_update_large_k"
+    name = {1: "running_topk_update", 2: "running_topk_update_large_k",
+            3: "running_topk_update_huge_k"}[topk_update.route(k)]
     row = dict(kernel=name, shape=label, M=m, C=c, K=k, ctas=m, **extra,
                kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
                kernel_call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
@@ -1059,6 +1117,375 @@ def serve_large_k(dev, smi, data, q128):
     return counts
 
 
+def serve_huge_k(dev, smi, data, q8):
+    """Phase 6b: k above 12288 on the served path, the top-K kernel's
+    route 3: on the plane ``serve_engine`` left, an fp32 server at
+    k = 12289 (every ring and merge launch on route 3) and an int8 server
+    at k = 3073 (the 1M-row segment's ring at K' = 12292), 8 queries each,
+    against ``engine_oracle``. Returns the path's counts."""
+    import torch
+
+    from repro_torch.data import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ExecutorConfig, HarmonyServer
+
+    n_parts = data.n_segments + (data.delta_len > 0)
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig(),
+                        device=dev)
+    srv8 = HarmonyServer(data, n_nodes=4, backend="spmd", precision="int8",
+                         executor_cfg=ExecutorConfig(), device=dev)
+    ops.reset_launch_counts()
+    for srv_, prec, k in ((srv, "fp32", 12289), (srv8, "int8", 3073)):
+        before = ops.launch_counts()
+        with RingTopkLaunches() as ring:
+            res = srv_.search_batch(q8, k=k)         # the first batch: executor builds too
+        after = ops.launch_counts()
+        warm = srv_.search_batch(q8, k=k)
+        launches = {n: after[n] - before[n] for n in after}
+        merge = launches["running_topk_update"] - ring.ring
+        want_s, want_i = engine_oracle(dev, data.snapshot(), q8, k)
+        recall = recall_at_k(res.ids, want_i)
+        if prec == "fp32":
+            assert_topk_matches(res.scores, res.ids, want_s, want_i, f"huge k fp32 k={k}")
+            # the ring (K = 12289) and the merge (C = K = 12289): all route 3
+            assert launches["running_topk_update_huge_k"] == launches["running_topk_update"], \
+                launches
+        else:
+            check_int8_rows(dev, data, q8, res, k)
+            assert recall >= 0.98, f"int8 k={k} recall@{k} vs the oracle {recall}"
+            # the 1M-row segment's ring runs at K' = 12292: route 3
+            assert launches["running_topk_update_huge_k"] > 0, launches
+        assert np.array_equal(warm.ids, res.ids) and np.array_equal(warm.scores, res.scores)
+        assert merge == n_parts, f"huge k {prec}: {merge} merge launches, {n_parts} parts"
+        log(phase="serve_engine_huge_k", precision=prec, nq=q8.shape[0], k=k,
+            ring_k=k if prec == "fp32" else 4 * k, wall_ms=warm.stats["wall_s"] * 1e3,
+            first_batch_wall_ms=res.stats["wall_s"] * 1e3, recall_vs_oracle=recall,
+            parts=n_parts, ring_topk_launches=ring.ring, merge_topk_launches=merge,
+            launches=launches, card=smi)
+    counts = ops.launch_counts()
+    assert_path_on_kernels(counts, ("partial_distance_update", "int8_partial_distance_update",
+                                    "running_topk_update", "running_topk_update_huge_k"),
+                           "serve_engine_huge_k")
+    del srv, srv8
+    torch.cuda.empty_cache()
+    return counts
+
+
+def device_mb():
+    """The card's allocated MB, after the queued work."""
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2 ** 20
+
+
+def near_rows(rng, ds, n, noise=0.05, queries=None):
+    """n rows near random corpus rows; the first ones near ``queries``
+    (every query's top-10 then meets them)."""
+    rows = rng.integers(0, ds.nb, size=n)
+    x = (ds.x[rows] + noise * rng.standard_normal((n, ds.x.shape[1]))).astype(np.float32)
+    if queries is not None:
+        m = min(n, len(queries))
+        x[:m] = queries[:m] + 0.01 * rng.standard_normal((m, queries.shape[1]))
+    return x
+
+
+def live_sealed_ids(data, rng, n, below):
+    """n distinct ids < ``below`` that are live in a sealed segment."""
+    out = []
+    for i in rng.permutation(below).tolist():
+        if data.has(i):
+            out.append(i)
+            if len(out) == n:
+                return np.array(out, np.int64)
+    raise AssertionError("not enough live ids")
+
+
+def serve_durable(dev, smi, holder, root, ds, q128):
+    """Phases 10 and 11 (``durable``, ``durable_torn``) on the plane
+    ``serve_engine`` left (``holder`` holds its only reference). A WAL
+    (``sync=True``) is attached, a write burst lands, the plane is
+    checkpointed, a second burst lands in the WAL only; a 128-query batch
+    equals ``engine_oracle``. Then a "crash" drops the server and the plane
+    (the card's memory must fall), ``recover_segmented_index`` rebuilds the
+    plane on the card from the checkpoint and the WAL, and a fresh
+    server's batch must equal the pre-crash batch bit for bit. Then a
+    write torn mid-record by a power cut (``wal.append``, kind "torn"), a
+    second crash and recovery: the result equals the oracle of every write
+    but the torn one. Returns (counts, the recovered plane, its server,
+    its WAL)."""
+    import gc
+
+    from repro_torch.checkpoint import (
+        Checkpointer,
+        WriteAheadLog,
+        checkpoint_segmented_index,
+        recover_segmented_index,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import FaultSpec, InjectedFault, fault_scope
+    from repro_torch.serve import ExecutorConfig, HarmonyServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(6)
+    data = holder.pop()
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig(),
+                        device=dev)
+    ops.reset_launch_counts()
+    wal_dir, ckpt = root / "wal", Checkpointer(root / "ckpt", keep=2)
+    wal = WriteAheadLog(wal_dir, sync=True)
+    data.attach_wal(wal)
+    records = []                  # (ms, rows) per write call: one WAL record each
+
+    def write(kind, ids, vecs=None):
+        t0 = time.perf_counter()
+        if kind == "upsert":
+            srv.upsert(ids, vecs)
+        else:
+            srv.delete(ids)
+        records.append(((time.perf_counter() - t0) * 1e3, len(ids)))
+
+    # burst C (before the checkpoint): fresh ids near the queries, overwrites
+    # and deletes of live sealed ids, as a few large calls
+    nb = ds.nb
+    fresh_c = np.arange(4_000_000, 4_002_000)
+    write("upsert", fresh_c, near_rows(rng, ds, 2_000, queries=q128))
+    over_c = live_sealed_ids(data, rng, 1_000, nb)
+    write("upsert", over_c, near_rows(rng, ds, 1_000))
+    write("delete", live_sealed_ids(data, rng, 1_000, nb))
+    t0 = time.perf_counter()
+    path = checkpoint_segmented_index(ckpt, data, wal)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in path.iterdir())
+    # burst D: in the WAL only
+    fresh_d = np.arange(4_010_000, 4_011_000)
+    write("upsert", fresh_d, near_rows(rng, ds, 1_000, queries=q128[64:]))
+    write("upsert", np.concatenate([fresh_c[:250], live_sealed_ids(data, rng, 250, nb)]),
+          near_rows(rng, ds, 500))
+    write("delete", np.concatenate([fresh_c[250:500], live_sealed_ids(data, rng, 250, nb)]))
+    acked_seq = data.wal_seq
+    pre = srv.search_batch(q128)
+    want_s, want_i = engine_oracle(dev, data.snapshot(), q128, 10)
+    assert_topk_matches(pre.scores, pre.ids, want_s, want_i, "durable, before the crash")
+    n_parts = data.n_segments + (data.delta_len > 0)
+
+    # the crash: the process's plane and server go; the disk stays
+    wal.close()
+    rows_mb = sum(s.index.x.numel() * 4 for s in data.segments) / 2 ** 20
+    mb_live = device_mb()
+    del srv, data, wal
+    gc.collect()
+    mb_crashed = device_mb()
+    # at least the sealed rows go (their executors' copies too)
+    assert mb_crashed < mb_live - 0.9 * rows_mb, f"the crash freed {mb_live - mb_crashed} MB"
+    t0 = time.perf_counter()
+    data, wal, report = recover_segmented_index(ckpt, wal_dir, sync=True, device=dev)
+    device_mb()
+    recover_s = time.perf_counter() - t0
+    assert data.device == dev and data.segments[0].index.x.device == dev
+    assert report["replayed"] == 3 and not report["torn_tail"], report
+    assert data.wal_seq == acked_seq
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig(),
+                        device=dev)
+    post = srv.search_batch(q128)
+    assert np.array_equal(post.ids, pre.ids) and np.array_equal(post.scores, pre.scores), \
+        "the recovered plane's batch differs from the pre-crash batch"
+    want_s, want_i = engine_oracle(dev, data.snapshot(), q128, 10)
+    assert_topk_matches(post.scores, post.ids, want_s, want_i, "durable, recovered")
+    fsync_ms = [ms for ms, _ in records]
+    log(phase="durable", nq=128, parts=n_parts, wal_records=len(records),
+        rows_per_record=[n for _, n in records], ms_per_record=fsync_ms,
+        ms_per_record_mean=float(np.mean(fsync_ms)),
+        checkpoint_bytes=ckpt_bytes, checkpoint_s=ckpt_s, records_replayed=report["replayed"],
+        recover_s=recover_s, first_batch_wall_ms=post.stats["wall_s"] * 1e3,
+        pre_crash_wall_ms=pre.stats["wall_s"] * 1e3, device_mb_live=mb_live,
+        device_mb_after_crash=mb_crashed, device_mb_recovered=device_mb(), rows_mb=rows_mb,
+        seconds=time.perf_counter() - t_phase, card=smi)
+
+    # durable_torn: a write torn mid-record by a power cut; recovery drops it
+    t_phase = time.perf_counter()
+    torn_ids = np.arange(4_020_000, 4_020_128)
+    with fault_scope(FaultSpec("wal.append", kind="torn")) as plan:
+        try:
+            srv.upsert(torn_ids, (q128 + 1e-3).astype(np.float32))
+            raise AssertionError("the torn write was acknowledged")
+        except InjectedFault:
+            pass
+    assert plan.fired == 1
+    wal.close()
+    del srv, data, wal
+    gc.collect()
+    t0 = time.perf_counter()
+    data, wal, report = recover_segmented_index(ckpt, wal_dir, sync=True, device=dev)
+    recover_s = time.perf_counter() - t0
+    assert report["torn_tail"] and report["replayed"] == 3, report
+    assert data.wal_seq == acked_seq and not any(data.has(int(i)) for i in torn_ids)
+    srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig(),
+                        device=dev)
+    res = srv.search_batch(q128)
+    assert_topk_matches(res.scores, res.ids, want_s, want_i, "durable_torn")
+    assert np.array_equal(res.ids, post.ids) and np.array_equal(res.scores, post.scores)
+    log(phase="durable_torn", nq=128, torn_rows=len(torn_ids), torn_tail=report["torn_tail"],
+        records_replayed=report["replayed"], recover_s=recover_s,
+        wal_bytes=sum(p.stat().st_size for p in wal_dir.glob("wal_*.log")),
+        first_batch_wall_ms=res.stats["wall_s"] * 1e3,
+        seconds=time.perf_counter() - t_phase, card=smi)
+    counts = ops.launch_counts()
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "durable")
+    return counts, data, srv, wal
+
+
+def serve_compactor(dev, smi, data, srv, ds, q128):
+    """Phase 12 (``compactor``) on the recovered plane: ``Compactor`` seals
+    the delta (``delta_full``), then merges every segment into one
+    (``too_many_segments``): the retired segments' executors must go at the
+    adopt, so the card's memory after the merge may not hold the old
+    1M-row segment twice. Then a crash at ``compactor.commit`` rolled
+    forward by ``recover()``, and a cycle on the background thread while
+    the main thread serves. After each step a 128-query batch equals
+    ``engine_oracle``. Returns the path's counts."""
+    import weakref
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import FaultSpec, InjectedFault, fault_scope
+    from repro_torch.serve import CompactionConfig, Compactor
+
+    rng = np.random.default_rng(7)
+    ops.reset_launch_counts()
+    comp = Compactor(data, srv, CompactionConfig(delta_threshold=1_000, max_segments=4,
+                                                 max_dead_fraction=0.25, poll_s=0.05),
+                     device=dev)
+    next_id = [4_100_000]
+
+    def burst(n):
+        ids = np.arange(next_id[0], next_id[0] + n)
+        next_id[0] += n
+        srv.upsert(ids, near_rows(rng, ds, n, queries=q128[rng.integers(0, 128, 32)]))
+        srv.delete(live_sealed_ids(data, rng, n // 10, ds.nb))
+
+    def check(step, ev, extra=None):
+        res = srv.search_batch(q128)
+        want_s, want_i = engine_oracle(dev, data.snapshot(), q128, 10)
+        assert_topk_matches(res.scores, res.ids, want_s, want_i, f"compactor {step}")
+        assert srv.generation == data.generation
+        log(phase="compactor", step=step, reason=ev.get("reason"),
+            generation=data.generation, segments=[s.nb for s in data.segments],
+            delta_live=data.delta_len,
+            **{k: ev[k] for k in ("wall_s", "seal_s", "prepare_s", "commit_s", "adopt_s",
+                                  "sealed_rows", "merged_segments", "new_segments")
+               if k in ev},
+            device_mb_after_adopt=device_mb(), batch_wall_ms=res.stats["wall_s"] * 1e3,
+            **(extra or {}), card=smi)
+
+    # 1. the delta is past the threshold: seal it into a fourth segment
+    assert comp.should_compact() == "delta_full", comp.should_compact()
+    ev = comp.maybe_compact()
+    assert ev["reason"] == "delta_full" and data.n_segments == 4 and data.delta_len == 0
+    check("delta_full", ev)
+    # 2. a burst with four segments: merge everything into one
+    burst(1_200)
+    assert comp.should_compact() == "too_many_segments"
+    old_execs = [weakref.ref(ex) for st in srv._seg_states.values()
+                 for ex in st.executors.values()]
+    old_rows_mb = sum(s.index.x.numel() * 4 for s in data.segments) / 2 ** 20
+    mb_before = device_mb()
+    ev = comp.maybe_compact()
+    mb_after = device_mb()
+    assert ev["merge_all"] and data.n_segments == 1 and data.delta_len == 0
+    freed = all(r() is None for r in old_execs)
+    # the old plane (rows and executors, ~2x its rows) is gone: what is left
+    # is the new one, about the same size
+    assert freed and mb_after < mb_before + 0.25 * old_rows_mb, (mb_before, mb_after)
+    check("merge_all", ev, dict(device_mb_before=mb_before,
+                                old_executors_freed=freed, old_rows_mb=old_rows_mb))
+    # 3. a crash after the commit, before the replicas adopt; recover()
+    # rolls forward
+    burst(1_100)
+    with fault_scope(FaultSpec("compactor.commit", kind="crash")) as plan:
+        try:
+            comp.maybe_compact()
+            raise AssertionError("compactor.commit did not fire")
+        except InjectedFault:
+            pass
+    assert plan.fired == 1 and srv.generation != data.generation
+    report = comp.recover()
+    assert not report["rolled_back"] and report["adopted"]
+    check("commit_crash_recovered", {"reason": "recover"}, dict(report=report))
+    # 4. the background thread seals a burst while this thread serves
+    burst(1_100)
+    n_events = len(comp.events)
+    t0 = time.perf_counter()
+    comp.start()
+    served = 0
+    try:
+        while len(comp.events) == n_events and time.perf_counter() - t0 < 120:
+            srv.search_batch(q128[:8])
+            served += 1
+    finally:
+        assert comp.stop(timeout=60.0), "the compactor thread did not stop"
+    assert not comp.errors, comp.errors
+    assert len(comp.events) > n_events, "the background thread made no cycle in 120 s"
+    check("background", comp.events[-1], dict(batches_served_meanwhile=served,
+                                              thread_s=time.perf_counter() - t0))
+    counts = ops.launch_counts()
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "compactor")
+    return counts
+
+
+def serve_placement(dev, smi, data, srv, q128):
+    """Phase 13 (``placement``): ``plan_placement`` at a device budget of
+    25 % of the plane's ``segment_device_bytes``, installed by
+    ``apply_placement``; the memory report, the tiers and the fall of the
+    card's memory are logged, and a batch must equal the device tier's
+    bit for bit. Returns the path's counts."""
+    from repro_torch.core import segment_device_bytes
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        PlacementConfig,
+        apply_placement,
+        device_bytes_by_segment,
+        plan_placement,
+    )
+
+    ops.reset_launch_counts()
+    hot = srv.search_batch(q128)
+    costs = device_bytes_by_segment(data, "fp32")
+    budget = int(0.25 * sum(costs.values()))
+    tiers = plan_placement(data, PlacementConfig(device_budget_bytes=budget, precision="fp32"))
+    assert "host" in tiers.values() and "device" in tiers.values(), tiers
+    rep0 = data.memory_report()
+    mb0 = device_mb()
+    t0 = time.perf_counter()
+    assert apply_placement(data, [srv], tiers)
+    place_s = time.perf_counter() - t0
+    mb1 = device_mb()
+    rep1 = data.memory_report()
+    res = srv.search_batch(q128)
+    mb2 = device_mb()
+    n_host = sum(t == "host" for t in tiers.values())
+    assert res.stats["cold_segments"] == n_host
+    assert np.array_equal(res.ids, hot.ids) and np.array_equal(res.scores, hot.scores), \
+        "the placed plane's batch differs from the device tier's"
+    host_rows_mb = sum(s.index.x.numel() * 4 for s in data.segments
+                       if tiers[s.seg_id] == "host") / 2 ** 20
+    log(phase="placement", budget_bytes=budget, costs=costs, tiers=tiers,
+        memory_report_before=rep0, memory_report_after=rep1,
+        report_device_drop_mb=(rep0["device_bytes"] - rep1["device_bytes"]) / 2 ** 20,
+        measured_device_drop_mb=mb0 - mb1, measured_drop_after_a_batch_mb=mb0 - mb2,
+        host_tier_index_rows_on_card_mb=host_rows_mb,
+        host_segment_device_bytes_mb=sum(segment_device_bytes(s) for s in data.segments
+                                         if tiers[s.seg_id] == "host") / 2 ** 20,
+        apply_s=place_s, wall_ms=res.stats["wall_s"] * 1e3,
+        device_tier_wall_ms=hot.stats["wall_s"] * 1e3,
+        bytes_streamed=res.stats["bytes_streamed"], card=smi)
+    counts = ops.launch_counts()
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "placement")
+    return counts
+
+
 def serve_bf16(dev, smi, index, q128, fp32_mb):
     """Phase 7: the executor over bf16 rows on the 1×1 mesh; its 128-query
     batch against an exact oracle over the bf16-rounded corpus, and its
@@ -1492,7 +1919,7 @@ def main() -> int:
 
     served = {"partial_distance_update": 0, "int8_partial_distance_update": 0,
               "running_topk_update": 0, "partial_distance_update_bf16": 0,
-              "running_topk_update_large_k": 0}
+              "running_topk_update_large_k": 0, "running_topk_update_huge_k": 0}
     fp32_mb = {}              # mesh → the fp32 executor's resident MB
     splits = {}               # (tier, mesh, M, K) → survivor histogram
     for mesh in ((1, 1), (2, 2)):
@@ -1651,10 +2078,27 @@ def main() -> int:
         served[k] += counts[k]
     time_merge_shapes(dev, smi)
 
-    # ------------------------------------- 6-9. this slice's served paths
+    # ------------------------------------- 6-13. the later slices' served paths
     q128 = q_all[lo128:lo128 + 128]
     paths = [serve_large_k(dev, smi, plane, q128)]
+    paths.append(serve_huge_k(dev, smi, plane, q128[:8]))
+    # 10-13: durability, compaction and placement on the same plane, whose
+    # only reference goes to serve_durable (its "crash" must free it)
+    holder = [plane]
     del plane
+    tmp_root = Path(__file__).resolve().parent / "build"
+    tmp_root.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="durable_", dir=tmp_root))
+    try:
+        counts, data, srv, wal = serve_durable(dev, smi, holder, root, ds, q128)
+        paths.append(counts)
+        paths.append(serve_compactor(dev, smi, data, srv, ds, q128))
+        paths.append(serve_placement(dev, smi, data, srv, q128))
+        data.attach_wal(None)
+        wal.close()
+        del data, srv, wal
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     paths.append(serve_bf16(dev, smi, index, q128, fp32_mb[(1, 1)]))
     paths.extend(serve_filtered_and_tiered(dev, smi, index, ds, q_all))
@@ -1663,7 +2107,7 @@ def main() -> int:
             served[k] += counts[k]
 
     # ---------------------------------------------------------- 6. report
-    # one entry per kernel route; a kernel's own count takes both of its
+    # one entry per kernel route; a kernel's own count takes all of its
     # routes, so the f32-row and K <= 256 entries are the rest
     sources = {
         "partial_distance_update": ("src/repro_torch/kernels/csrc/partial_distance.cu",
@@ -1677,10 +2121,13 @@ def main() -> int:
                                 "src/repro/kernels/topk_update.py:93"),
         "running_topk_update_large_k": ("src/repro_torch/kernels/csrc/topk_update.cu",
                                         "src/repro/kernels/topk_update.py:93"),
+        "running_topk_update_huge_k": ("src/repro_torch/kernels/csrc/topk_update.cu",
+                                       "src/repro/kernels/topk_update.py:93"),
     }
     launches = dict(served)
     launches["partial_distance_update"] -= served["partial_distance_update_bf16"]
-    launches["running_topk_update"] -= served["running_topk_update_large_k"]
+    launches["running_topk_update"] -= (served["running_topk_update_large_k"]
+                                        + served["running_topk_update_huge_k"])
     kernels = []
     for name, (source, replaces) in sources.items():
         row = timed[name]

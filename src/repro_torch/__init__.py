@@ -2,7 +2,7 @@
 written by hand for Hopper (sm_90a).
 
 A port of the JAX package ``repro``, module by module, with the same
-layout and public names. It imports neither ``jax`` nor ``repro``.
+layout and public names. It imports neither JAX nor ``repro``.
 
 The served entry point is ``repro_torch.serve.HarmonyServer.search_batch``
 over a mutable ``repro_torch.core.SegmentedIndex``: per sealed segment

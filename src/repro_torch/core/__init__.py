@@ -21,6 +21,7 @@ from repro_torch.core.index import (
     ivf_from_arrays,
     preassign,
     quantize_vectors,
+    segment_device_bytes,
 )
 from repro_torch.core.planner import PlanDecision, factorizations, plan_search
 from repro_torch.core.pruning import (
@@ -63,7 +64,7 @@ __all__ = [
     "SearchRequest", "Filter", "TagIn", "NumRange", "And", "Or", "DataPlane",
     "MetadataStore", "TAG_MISSING",
     "Segment", "SegmentedIndex", "DataSnapshot", "CompactionPlan",
-    "Int8Quant", "quantize_vectors",
+    "Int8Quant", "quantize_vectors", "segment_device_bytes",
     "plan_search", "factorizations", "PlanDecision", "HardwareModel",
     "WorkloadStats", "plan_cost", "harmony_search",
     "search_oracle", "delta_topk", "merge_topk", "two_stage_search",

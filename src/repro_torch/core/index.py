@@ -511,6 +511,15 @@ class MetadataStore:
             else tuple(self.texts[int(r)] for r in rows),
         )
 
+    def memory_bytes(self) -> int:
+        """Host bytes of the columns, texts counted by their lengths."""
+        out = sum(c.nbytes for c in self.tags.values())
+        out += sum(c.nbytes for c in self.nums.values())
+        if self.texts is not None:
+            out += sum(len(t) for t in self.texts if t)
+        return out
+
+
 def metadata_from(meta: Optional[Mapping]) -> Optional[MetadataStore]:
     """A :class:`MetadataStore` with its own copies of the columns in
     ``meta``, a mapping with ``tags`` and ``nums`` (name -> [NB] array)
@@ -610,6 +619,22 @@ class Segment:
     @property
     def nb(self) -> int:
         return self.index.nb
+
+
+def segment_device_bytes(seg: "Segment", precision: str = "fp32",
+                         d_blocks: int = 1) -> int:
+    """Bytes the executor keeps on the card for one sealed segment at
+    ``precision``, as the reference counts them: the packed rows (int8
+    codes, or 4 bytes a value), the per-dimension-block norms and the
+    packed cluster and row id columns. The currency of the placement
+    budget: a ``device``-tier segment costs this much, a ``host``-tier one
+    nothing. (The port also keeps ``IVFIndex.x`` on the card for every
+    tier, which this count leaves out, as the reference's leaves out its
+    host copy.)"""
+    idx = seg.index
+    d = int(idx.x.shape[1])
+    per_row = (d if precision == "int8" else 4 * d) + 4 * d_blocks + 8
+    return idx.nb * per_row
 
 
 @dataclass(frozen=True)
@@ -807,11 +832,73 @@ class SegmentedIndex:
         with self._mu:
             return len(self._loc) + len(self._delta_pos)
 
+    def live_sizes(self, seg: Segment) -> np.ndarray:
+        """Tombstone-aware per-cluster sizes of one sealed segment (what
+        load-aware planning should balance: dead rows carry no work)."""
+        with self._mu:
+            alive = ~self._dead_rows[seg.seg_id]
+        return np.bincount(
+            seg.index.cluster_of[alive], minlength=seg.index.nlist
+        ).astype(np.int64)
+
     def dead_count_by_segment(self) -> Dict[int, int]:
         with self._mu:
             return {sid: int(d.sum()) for sid, d in self._dead_rows.items()}
 
+    def memory_bytes(self) -> int:
+        """Total bytes across both tiers, as the reference counts them:
+        sealed segments (with metadata columns, cached BM25 postings and
+        int8 codes), dead bitmaps and the delta buffer. The per-tier split
+        is :meth:`memory_report`."""
+        rep = self.memory_report()
+        return rep["host_bytes"] + rep["device_bytes"]
+
+    def _segment_host_bytes_locked(self, seg: Segment) -> int:
+        """Bytes of one sealed segment that the reference keeps on the
+        host: the fp32 corpus and build arrays (the re-rank, compaction and
+        checkpoint source), metadata columns, lazily built BM25 postings
+        and cached int8 codes. In the port the corpus rows ``IVFIndex.x``
+        live on the index's device; they are counted here all the same, so
+        the report equals the reference's."""
+        idx = seg.index
+        out = sum(a.nbytes for a in (idx.centers, idx.ids, idx.offsets,
+                                     idx.cluster_of))
+        out += idx.x.numel() * idx.x.element_size()
+        if idx.meta is not None:
+            out += idx.meta.memory_bytes()
+        bm = idx.__dict__.get("_bm25")
+        if bm is not None:
+            out += bm.memory_bytes()
+        for quant in idx.__dict__.get("_int8_quants", {}).values():
+            out += quant.memory_bytes()
+        return out
+
+    def memory_report(self, precision: str = "fp32",
+                      d_blocks: int = 1) -> Dict[str, int]:
+        """Per-tier byte accounting with the reference's keys and values:
+        ``device_bytes`` counts, for every ``device``-tier segment, what
+        the executor keeps resident at ``precision``
+        (:func:`segment_device_bytes`); everything else (corpora, metadata,
+        BM25 postings, int8 codes, dead bitmaps, the delta buffer) is
+        ``host_bytes``. The placement budget reads it."""
+        with self._mu:
+            device = 0
+            host = sum(d.nbytes for d in self._dead_rows.values())
+            host += (self._delta_x.nbytes + self._delta_ids.nbytes
+                     + self._delta_live.nbytes)
+            for s in self.segments:
+                host += self._segment_host_bytes_locked(s)
+                if self._tier.get(s.seg_id, "device") == "device":
+                    device += segment_device_bytes(s, precision, d_blocks)
+            return {"device_bytes": device, "host_bytes": host,
+                    "total_bytes": device + host}
+
     # ------------------------------------------------------ tier placement
+    def tier_of(self, seg_id: int) -> str:
+        """Current tier of a sealed segment ("device" unless demoted)."""
+        with self._mu:
+            return self._tier.get(int(seg_id), "device")
+
     def tiers(self) -> Dict[int, str]:
         """seg_id -> tier for every sealed segment (point-in-time copy)."""
         with self._mu:
@@ -822,8 +909,8 @@ class SegmentedIndex:
         """Install a placement (seg_id -> "device"|"host") and bump
         ``placement_version`` so every serving replica re-syncs on its
         next batch. Unknown seg ids are ignored; omitted segments keep
-        their tier. Returns the new version. (The port's executor serves
-        the device tier only; the host tier comes with tiered placement.)"""
+        their tier. Returns the new version. Tier moves never change
+        results, so unlike a generation swap this invalidates nothing."""
         live = {s.seg_id for s in self.segments}
         with self._mu:
             for sid, tier in tiers.items():
@@ -860,6 +947,14 @@ class SegmentedIndex:
             h = self._hotness.get(int(seg_id))
             return h.copy() if h is not None else np.zeros(nlist, np.float64)
 
+    def segment_hotness(self) -> Dict[int, float]:
+        """seg_id -> total probe mass EWMA (the per-segment heat the
+        placement policy ranks by)."""
+        with self._mu:
+            return {s.seg_id: float(self._hotness[s.seg_id].sum())
+                    if s.seg_id in self._hotness else 0.0
+                    for s in self.segments}
+
     def has(self, ext_id: int) -> bool:
         """Is ``ext_id`` live (reachable by search)?"""
         with self._mu:
@@ -873,11 +968,15 @@ class SegmentedIndex:
 
     # ----------------------------------------------------------- durability
     def attach_wal(self, wal) -> None:
-        """Journal every later accepted write to ``wal`` (an object with
-        ``append_upsert(ids, vecs, meta_rows)`` and ``append_delete(ids)``
-        returning the record's sequence number), inside the critical
-        section that applies it, so log order is apply order. Pass
-        ``None`` to detach."""
+        """Journal every later accepted write to ``wal`` (a
+        :class:`repro_torch.checkpoint.WriteAheadLog`, or any object with
+        its ``append_upsert(ids, vecs, meta_rows)`` and
+        ``append_delete(ids)``, which return the record's sequence number),
+        inside the critical section that applies it, so log order is apply
+        order and a write is acknowledged only once durable. An append
+        that raises (a disk error, an injected torn write) reaches the
+        writer: the write was not acknowledged and recovery will not
+        replay it. Pass ``None`` to detach."""
         with self._mu:
             self._wal = wal
 

@@ -3,7 +3,7 @@
 Same algorithm as the reference: greedy farthest-point seeding on a
 subsample of at most 4096 rows, a fixed number of Lloyd iterations, and
 empty clusters re-seeded at the row farthest from its center. The
-reference draws its subsample and first seed with ``jax.random``, which
+reference draws its subsample and first seed with JAX's PRNG, which
 PyTorch cannot reproduce, so this port draws them from
 ``numpy.random.default_rng(seed)``: the centers are not the reference's.
 

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel `running_topk_update` of
 // src/repro/kernels/topk_update.py (body `_kernel`). Merges candidates
 // scores/ids [M, C] (+inf = invalid) into the ascending running top-K
-// run_s/run_i [M, K], any C and K <= kMaxK. The result is the first K of the
+// run_s/run_i [M, K], any C and any K. The result is the first K of the
 // stable ascending sort of each row's [run, candidates]: on equal scores a
 // running entry wins over a candidate (the TPU kernel's head_s <= cmin), and
 // among equal candidates the lowest column wins. Wherever the output score
@@ -21,7 +21,7 @@
 // dependent loads, votes and stores per row, and, in the rows where
 // candidates may enter the list, the merge.
 //
-// Two routes, chosen at launch by K.
+// Three routes, chosen at launch by K.
 //
 // Route 1, K <= 256: one warp per row and one warp per CTA, so M CTAs.
 //  - The running list lives in registers: lane l holds entries l + 32 e for
@@ -66,7 +66,23 @@
 //    columns are lower, so "the run wins" is the stable sort's "the lower
 //    column wins". A window without survivors costs its loads and a vote.
 //
-// Both routes read each id once, at the output write: from run_i, or from
+// Route 3, K > kMaxK (a served k above 12288, or the int8 tier's K' = 4 k
+// above k = 3072): one CTA of 1024 threads per row; the list no longer fits
+// shared memory.
+//  - The running list stays in global memory. Each window of 2048 columns
+//    is compacted and sorted in shared memory (16 KB) as in route 2, and
+//    merged by ranks from the current list into another [M, K] list in
+//    global memory: the output, or one scratch list the wrapper allocates.
+//    The two take turns window by window (a window without survivors
+//    leaves the list where it is), and the last list is copied into the
+//    output if it ended in the scratch. Route 2's tie rule holds across
+//    windows for the same reason as there.
+//  - The lists carry ids, not sources: an id is read once, when its entry
+//    enters a list, and -1 is written at the end wherever the score is +inf.
+//  - Bytes bound it: each window with survivors reads and writes the whole
+//    list (16 K bytes), where route 2 reads and writes it once.
+//
+// Routes 1 and 2 read each id once, at the output write: from run_i, or from
 // the candidate's column of `ids` (row stride C, or 0 when the ring passes
 // one chunk's ids to every row of a group; those reads then hit in cache).
 //
@@ -219,10 +235,11 @@ int launch(const void* scores, const void* ids, long long ids_ld,
 }
 
 
-// ------------------------------------------------------------ route 2
+// ------------------------------------------------------------ routes 2, 3
 constexpr int kBigThreads = 256;
+constexpr int kHugeThreads = 1024;
 constexpr int kBigWindow = 2048;           // columns of one survivor window
-constexpr int kMaxK = 12288;               // 16 K + 8 W bytes <= 227 KB
+constexpr int kMaxK = 12288;               // route 2: 16 K + 8 W bytes <= 227 KB
 
 __device__ __forceinline__ bool key_gt(float sa, int ca, float sb, int cb) {
   return sa > sb || (sa == sb && ca > cb);
@@ -248,6 +265,72 @@ __device__ __forceinline__ int count_le(const float* a, int n, float v) {
   return lo;
 }
 
+// count_le over a list in global memory that this CTA writes (read from L2,
+// never through the read-only path)
+__device__ __forceinline__ int count_le_global(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldcg(a + mid) <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Compact the survivors (s < thr) of columns base .. base + W - 1 into
+// cs/cc, in any order, and return how many there are. *n_surv is 0 on entry.
+// When n > 0 it is set back to 0 here, and the caller's next barrier (the
+// sort's) orders that before the next window's atomics; when n = 0 it is
+// left alone, so a thread already at the next window cannot lose a count.
+// Every thread of the CTA (T of them) calls it.
+template <int T>
+__device__ __forceinline__ int compact_window(const float* srow, int C, int base,
+                                              int W, float thr, float* cs,
+                                              int* cc, int* n_surv) {
+  const int tid = threadIdx.x, lane = tid % kWarp;
+  for (int c0 = base; c0 < base + W; c0 += T) {
+    const int c = c0 + tid;
+    const float v = c < C ? srow[c] : INFINITY;
+    const bool live = v < thr;
+    const unsigned vote = __ballot_sync(kFull, live);
+    if (vote) {
+      int at = 0;
+      if (lane == 0) at = atomicAdd(n_surv, __popc(vote));
+      at = __shfl_sync(kFull, at, 0) + __popc(vote & ((1u << lane) - 1u));
+      if (live) { cs[at] = v; cc[at] = c; }
+    }
+  }
+  __syncthreads();
+  const int n = *n_surv;
+  __syncthreads();              // every thread has read n before the reset
+  if (tid == 0 && n != 0) *n_surv = 0;
+  return n;
+}
+
+// Sort cs/cc[0 .. n) by (score, column): a bitonic network over P = 2^p >= n
+// (columns are distinct, so the order is total). cs/cc hold at least P.
+template <int T>
+__device__ __forceinline__ void sort_window(float* cs, int* cc, int n) {
+  const int tid = threadIdx.x;
+  int P = 1;
+  while (P < n) P <<= 1;
+  for (int j = n + tid; j < P; j += T) { cs[j] = INFINITY; cc[j] = 0x7fffffff; }
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < P / 2; i += T) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const float sa = cs[lo], sb = cs[hi];
+        const int ca = cc[lo], cb = cc[hi];
+        if (key_gt(sa, ca, sb, cb) == up) {
+          cs[lo] = sb; cc[lo] = cb; cs[hi] = sa; cc[hi] = ca;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kBigThreads)
 topk_update_big_kernel(const float* __restrict__ scores,  // [M, C]
                        const int* __restrict__ ids,       // [M, C] (row stride ids_ld)
@@ -265,7 +348,7 @@ topk_update_big_kernel(const float* __restrict__ scores,  // [M, C]
   float* cs = reinterpret_cast<float*>(nc + K);      // survivors [W]
   int* cc = reinterpret_cast<int*>(cs + W);
   __shared__ int n_surv;
-  const int tid = threadIdx.x, lane = tid % kWarp;
+  const int tid = threadIdx.x;
   const size_t row = blockIdx.x;
   const float* srow = scores + row * C;
 
@@ -279,41 +362,10 @@ topk_update_big_kernel(const float* __restrict__ scores,  // [M, C]
 
   for (int base = 0; base < C; base += W) {
     // 1. compact the window's survivors (s < thr), in any order
-    for (int c0 = base; c0 < base + W; c0 += kBigThreads) {
-      const int c = c0 + tid;
-      const float v = c < C ? srow[c] : INFINITY;
-      const bool live = v < thr;
-      const unsigned vote = __ballot_sync(kFull, live);
-      if (vote) {
-        int at = 0;
-        if (lane == 0) at = atomicAdd(&n_surv, __popc(vote));
-        at = __shfl_sync(kFull, at, 0) + __popc(vote & ((1u << lane) - 1u));
-        if (live) { cs[at] = v; cc[at] = c; }
-      }
-    }
-    __syncthreads();
-    const int n = n_surv;
-    __syncthreads();            // every thread has read n before any new vote
-    if (n == 0) continue;       // n_surv is still 0 for the next window
-    // 2. sort them by (score, column): a bitonic network over P = 2^p >= n
-    int P = 1;
-    while (P < n) P <<= 1;
-    for (int j = n + tid; j < P; j += kBigThreads) { cs[j] = INFINITY; cc[j] = 0x7fffffff; }
-    __syncthreads();
-    for (int size = 2; size <= P; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < P / 2; i += kBigThreads) {
-          const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
-          const bool up = (lo & size) == 0;
-          const float sa = cs[lo], sb = cs[hi];
-          const int ca = cc[lo], cb = cc[hi];
-          if (key_gt(sa, ca, sb, cb) == up) {
-            cs[lo] = sb; cc[lo] = cb; cs[hi] = sa; cc[hi] = ca;
-          }
-        }
-        __syncthreads();
-      }
-    }
+    const int n = compact_window<kBigThreads>(srow, C, base, W, thr, cs, cc, &n_surv);
+    if (n == 0) continue;
+    // 2. sort them by (score, column)
+    sort_window<kBigThreads>(cs, cc, n);
     // 3. merge by ranks into the next list, keeping the first K
     const int m = n < K ? n : K;
     for (int j = tid; j < K; j += kBigThreads) {
@@ -330,8 +382,6 @@ topk_update_big_kernel(const float* __restrict__ scores,  // [M, C]
     float* ts = ls; ls = ns; ns = ts;
     int* tc = lc; lc = nc; nc = tc;
     thr = ls[K - 1];
-    if (tid == 0) n_surv = 0;
-    __syncthreads();
   }
 
   const int* hi = run_i + row * K;
@@ -341,6 +391,66 @@ topk_update_big_kernel(const float* __restrict__ scores,  // [M, C]
     const int src = lc[j];
     out_s[row * K + j] = v;
     out_i[row * K + j] = !isfinite(v) ? -1 : src < 0 ? hi[-1 - src] : irow[src];
+  }
+}
+
+__global__ void __launch_bounds__(kHugeThreads)
+topk_update_huge_kernel(const float* __restrict__ scores,  // [M, C]
+                        const int* __restrict__ ids,       // [M, C] (row stride ids_ld)
+                        long long ids_ld,
+                        const float* __restrict__ run_s,   // [M, K]
+                        const int* __restrict__ run_i,     // [M, K]
+                        float* out_s,                      // [M, K]
+                        int* out_i,                        // [M, K]
+                        float* tmp_s,                      // [M, K] scratch
+                        int* tmp_i,                        // [M, K] scratch
+                        int C, int K) {
+  __shared__ float cs[kBigWindow];          // survivors of one window
+  __shared__ int cc[kBigWindow];
+  __shared__ int n_surv;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x, off = row * (size_t)K;
+  const float* srow = scores + row * (size_t)C;
+  const int* irow = ids + row * ids_ld;
+  float* const os = out_s + off;
+  int* const oi = out_i + off;
+  // the current list: the input, then the list the last merge wrote
+  const float* cur_s = run_s + off;
+  const int* cur_i = run_i + off;
+  if (tid == 0) n_surv = 0;
+  __syncthreads();
+  float thr = cur_s[K - 1];
+
+  for (int base = 0; base < C; base += kBigWindow) {
+    const int n = compact_window<kHugeThreads>(srow, C, base, kBigWindow, thr,
+                                               cs, cc, &n_surv);
+    if (n == 0) continue;
+    sort_window<kHugeThreads>(cs, cc, n);
+    // merge by ranks into the list the current one is not (n <= W < K)
+    float* ds = cur_s == os ? tmp_s + off : os;
+    int* di = cur_s == os ? tmp_i + off : oi;
+    for (int j = tid; j < K; j += kHugeThreads) {
+      const float r = __ldcg(cur_s + j);
+      const int p = j + count_lt(cs, n, r);
+      if (p < K) { ds[p] = r; di[p] = __ldcg(cur_i + j); }
+    }
+    for (int i = tid; i < n; i += kHugeThreads) {
+      const float v = cs[i];
+      const int p = i + count_le_global(cur_s, K, v);
+      if (p < K) { ds[p] = v; di[p] = irow[cc[i]]; }
+    }
+    __syncthreads();            // the new list is written and visible to the CTA
+    cur_s = ds;
+    cur_i = di;
+    thr = __ldcg(cur_s + K - 1);
+  }
+
+  // the list into the output, id -1 wherever the score is +inf
+  for (int j = tid; j < K; j += kHugeThreads) {
+    const float v = __ldcg(cur_s + j);
+    const int id = __ldcg(cur_i + j);
+    if (cur_s != os) os[j] = v;
+    oi[j] = isfinite(v) ? id : -1;
   }
 }
 
@@ -372,30 +482,50 @@ int launch_big(const void* scores, const void* ids, long long ids_ld,
   return (int)cudaGetLastError();
 }
 
+int launch_huge(const void* scores, const void* ids, long long ids_ld,
+                const void* run_s, const void* run_i, void* out_s, void* out_i,
+                void* tmp_s, void* tmp_i, int M, int C, int K,
+                cudaStream_t stream) {
+  if (tmp_s == nullptr || tmp_i == nullptr) return (int)cudaErrorInvalidValue;
+  topk_update_huge_kernel<<<M, kHugeThreads, 0, stream>>>(
+      (const float*)scores, (const int*)ids, ids_ld, (const float*)run_s,
+      (const int*)run_i, (float*)out_s, (int*)out_i, (float*)tmp_s,
+      (int*)tmp_i, C, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Entries a lane holds for K on route 1: 1, 2, 4 or 8; 0 for route 2
-// (256 < K <= kMaxK); -1 when K is outside 1..kMaxK.
-extern "C" int topk_update_entries_per_lane(int K) {
-  if (K < 1 || K > kMaxK) return -1;
-  if (K > 8 * kWarp) return 0;
-  return K <= kWarp ? 1 : K <= 2 * kWarp ? 2 : K <= 4 * kWarp ? 4 : 8;
+// The route a list of K takes: 1 (K <= 256), 2 (K <= kMaxK) or 3; 0 for K < 1.
+extern "C" int topk_update_route(int K) {
+  if (K < 1) return 0;
+  return K <= 8 * kWarp ? 1 : K <= kMaxK ? 2 : 3;
 }
 
 extern "C" int topk_update_max_k() { return kMaxK; }
 
+// tmp_s / tmp_i: an [M, K] scratch list, read only on route 3 (may be null
+// on the others).
 extern "C" int running_topk_update_f32(
     const void* scores, const void* ids, long long ids_ld, const void* run_s,
-    const void* run_i, void* out_s, void* out_i, int M, int C, int K,
-    void* stream) {
+    const void* run_i, void* out_s, void* out_i, void* tmp_s, void* tmp_i,
+    int M, int C, int K, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C < 1) return (int)cudaErrorInvalidValue;
-  switch (topk_update_entries_per_lane(K)) {
-    case 0: return launch_big(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
-    case 1: return launch<1>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
-    case 2: return launch<2>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
-    case 4: return launch<4>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
-    case 8: return launch<8>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
+  switch (topk_update_route(K)) {
+    case 1: {
+      const int e = K <= kWarp ? 1 : K <= 2 * kWarp ? 2 : K <= 4 * kWarp ? 4 : 8;
+      switch (e) {
+        case 1: return launch<1>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
+        case 2: return launch<2>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
+        case 4: return launch<4>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
+        default: return launch<8>(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
+      }
+    }
+    case 2: return launch_big(scores, ids, ids_ld, run_s, run_i, out_s, out_i, M, C, K, st);
+    case 3:
+      return launch_huge(scores, ids, ids_ld, run_s, run_i, out_s, out_i, tmp_s, tmp_i,
+                         M, C, K, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

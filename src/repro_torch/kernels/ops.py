@@ -104,9 +104,10 @@ def running_topk_update(
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches and plain-version calls since the last reset. A
-    kernel's count takes every launch; ``partial_distance_update_bf16`` and
-    ``running_topk_update_large_k`` count again those of its bf16-row route
-    and its K > 256 route."""
+    kernel's count takes every launch; ``partial_distance_update_bf16``,
+    ``running_topk_update_large_k`` and ``running_topk_update_huge_k`` count
+    again those of its bf16-row route, its route 2 (256 < K <= 12288) and
+    its route 3 (K > 12288)."""
     return {
         "partial_distance_update": distance.partial_distance_update.launches,
         "int8_partial_distance_update":
@@ -116,6 +117,8 @@ def launch_counts() -> Dict[str, int]:
             distance.partial_distance_update.bf16_launches,
         "running_topk_update_large_k":
             topk_update.running_topk_update.large_k_launches,
+        "running_topk_update_huge_k":
+            topk_update.running_topk_update.huge_k_launches,
         "partial_distance_update_ref": ref.partial_distance_update_ref.calls,
         "int8_partial_distance_update_ref":
             ref.int8_partial_distance_update_ref.calls,
@@ -129,6 +132,7 @@ def reset_launch_counts() -> None:
     topk_update.running_topk_update.launches = 0
     distance.partial_distance_update.bf16_launches = 0
     topk_update.running_topk_update.large_k_launches = 0
+    topk_update.running_topk_update.huge_k_launches = 0
     ref.partial_distance_update_ref.calls = 0
     ref.int8_partial_distance_update_ref.calls = 0
     ref.running_topk_ref.calls = 0

@@ -15,10 +15,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_K = 12288        # route 2 keeps the list in shared memory: 16 K + 8 W bytes
-MAX_C = 2 ** 31 - 1  # columns are read in windows; the kernel indexes them as int
 WARP_MAX_K = 256     # route 1 (one warp a row, the list in registers) up to here
-_SIG = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4
+MAX_K = 12288        # route 2 (the list in shared memory: 16 K + 8 W bytes) up to here
+MAX_INDEX = 2 ** 31 - 1  # K and C: the kernel indexes lists and columns as int
+MAX_C = MAX_INDEX    # columns are read in windows
+_SIG = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
@@ -34,25 +35,27 @@ def _lib():
         lib.topk_update_max_k.restype = ctypes.c_int
         if lib.topk_update_max_k() != MAX_K:
             raise RuntimeError("csrc/topk_update.cu and topk_update.MAX_K disagree")
+        lib.topk_update_route.argtypes = [ctypes.c_int]
+        lib.topk_update_route.restype = ctypes.c_int
     return lib
 
 
 def route(k: int) -> int:
-    """The kernel route a list of ``k`` takes: 1 (one warp a row, K <= 256)
-    or 2 (one CTA a row, the list in shared memory)."""
-    return 1 if k <= WARP_MAX_K else 2
+    """The kernel route a list of ``k`` takes: 1 (one warp a row, K <= 256),
+    2 (one CTA a row, the list in shared memory, K <= ``MAX_K``) or 3 (one
+    CTA a row, the list in global memory)."""
+    return 1 if k <= WARP_MAX_K else 2 if k <= MAX_K else 3
 
 
 def check_limits(k: int, c: int) -> None:
     """Raise ``ValueError``, naming the limit, when the kernel cannot take
     a list of ``k`` or a chunk of ``c`` columns. Callers that choose K run
     it before any launch, on every device, so a K the card would refuse
-    fails the same way on the CPU. K is bounded by the shared memory of
-    route 2 (the list, a second list to merge into and one window of
-    survivors), C only by the kernel's int column index."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside 1..{MAX_K}, the running top-K "
-                         "kernel's shared-memory limit")
+    fails the same way on the CPU. Both are bounded only by the kernel's
+    int index: route 3 keeps a list of any K in global memory."""
+    if not 1 <= k <= MAX_INDEX:
+        raise ValueError(f"k={k} outside 1..{MAX_INDEX}, the running top-K "
+                         "kernel's int index")
     if not 1 <= c <= MAX_C:
         raise ValueError(f"C={c} outside 1..{MAX_C}, the running top-K "
                          "kernel's limit")
@@ -79,7 +82,8 @@ def running_topk_update(
     """Merge a candidate chunk into the per-query running top-K.
 
     ``tile_m`` is accepted for signature parity; the kernel runs one CTA
-    per query row (M CTAs): one warp for K <= 256, 256 threads above
+    per query row (M CTAs): one warp for K <= 256, 256 threads up to
+    ``MAX_K``, 1024 above, where an [M, K] scratch list is allocated here
     (:func:`route`). ``ids`` may be an expanded row (``id_c.expand(M, C)``).
     """
     m, c = scores.shape
@@ -104,21 +108,32 @@ def running_topk_update(
     if m == 0:
         return out_s, out_i
     lib = _lib()
+    r = route(k)
+    if lib.topk_update_route(k) != r:
+        raise RuntimeError(f"csrc/topk_update.cu routes k={k} otherwise than route()")
+    tmp_s = tmp_i = None
+    if r == 3:
+        tmp_s = torch.empty_like(out_s)
+        tmp_i = torch.empty_like(out_i)
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream(scores.device).cuda_stream
         err = lib.running_topk_update_f32(
             scores.data_ptr(), ids.data_ptr(), ids.stride(0), run_s.data_ptr(),
-            run_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), m, c, k,
-            stream,
+            run_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            None if tmp_s is None else tmp_s.data_ptr(),
+            None if tmp_i is None else tmp_i.data_ptr(), m, c, k, stream,
         )
     if err:
         raise RuntimeError("running_topk_update launch failed: "
                            + lib.topk_update_error_string(err).decode())
     running_topk_update.launches += 1
-    if route(k) == 2:
+    if r == 2:
         running_topk_update.large_k_launches += 1
+    elif r == 3:
+        running_topk_update.huge_k_launches += 1
     return out_s, out_i
 
 
-running_topk_update.launches = 0          # every launch, both routes
+running_topk_update.launches = 0          # every launch, all routes
 running_topk_update.large_k_launches = 0  # the launches of route 2
+running_topk_update.huge_k_launches = 0   # the launches of route 3

@@ -1,6 +1,26 @@
 """Runtime: the serving cluster's live node set and the survivor
-re-plan. Straggler hedging and fault injection come with later slices."""
+re-plan, and deterministic fault injection. Straggler hedging comes with
+a later slice."""
 
 from repro_torch.runtime.elastic import ClusterState, replan_on_failure
+from repro_torch.runtime.faults import (
+    FaultPlan,
+    FaultSpec,
+    InjectedFault,
+    active_fault_plan,
+    fault_point,
+    fault_scope,
+    install_fault_plan,
+)
 
-__all__ = ["ClusterState", "replan_on_failure"]
+__all__ = [
+    "ClusterState",
+    "replan_on_failure",
+    "FaultPlan",
+    "FaultSpec",
+    "InjectedFault",
+    "active_fault_plan",
+    "fault_point",
+    "fault_scope",
+    "install_fault_plan",
+]

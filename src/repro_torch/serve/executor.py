@@ -307,8 +307,9 @@ class SpmdExecutor:
 
     def _k_step(self, k: int) -> int:
         """The ring's K: k, or the int8 tier's K' = k·rerank_factor.
-        Raises ``ValueError`` when it is beyond the top-K kernel's limit
-        (``topk_update.MAX_K``), on every device, before any launch."""
+        Raises ``ValueError`` when it is beyond the top-K kernel's int
+        index (``topk_update.MAX_INDEX``), on every device, before any
+        launch."""
         kp = k
         if self.precision == "int8":
             kp = min(k * self.cfg.rerank_factor, self.index.nb)

@@ -397,6 +397,7 @@ def test_ops_on_cpu_use_plain_versions_only():
                       "running_topk_update": 0,
                       "partial_distance_update_bf16": 0,
                       "running_topk_update_large_k": 0,
+                      "running_topk_update_huge_k": 0,
                       "partial_distance_update_ref": 1,
                       "int8_partial_distance_update_ref": 1,
                       "running_topk_ref": 1}
@@ -411,9 +412,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         distance.partial_distance_update(*_t(*_mk(4, 8, 16)))
     with pytest.raises(ValueError, match="CUDA"):
         topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 3)), k=3)
-    k = topk_update.MAX_K + 1
-    with pytest.raises(ValueError, match="k="):
+    k = topk_update.MAX_K + 1          # route 3 takes it: the device check refuses
+    with pytest.raises(ValueError, match="CUDA"):
         topk_update.running_topk_update(*_t(*_mk_topk(4, 8, k)), k=k)
+    with pytest.raises(ValueError, match="k=0"):
+        topk_update.running_topk_update(*_t(*_mk_topk(4, 8, 0)), k=0)
     x, xn2, q, qn2, s2, acc, tau = _mk_int8(4, 8, 16)
     args = (*_t(x, xn2, q, qn2), torch.tensor(s2), *_t(acc, tau))
     with pytest.raises(ValueError, match="CUDA"):
@@ -424,25 +427,31 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_topk_limits_raise_before_any_launch():
-    """The top-K kernel takes any C and K <= MAX_K = 12288, the most that
-    route 2's shared memory holds (16 K + 8 W bytes with a 2048-column
-    window: 212 KB of the H100's 227 KB). The executor (its ring's K,
-    k·rerank_factor in the int8 tier) and the fused merge check that
-    before any launch, on every device, with no switch to the plain
-    version; below it they serve, and K > 256 takes route 2."""
+    """The top-K kernel takes any C and any K up to its int index,
+    2^31 - 1: route 1 up to K = 256, route 2 up to MAX_K = 12288 (what its
+    shared memory holds: 16 K + 8 W bytes with a 2048-column window, 212 KB
+    of the H100's 227 KB), route 3 above it (the list in global memory).
+    K < 1, and K or C past the int index, raise ``ValueError`` before any
+    launch, on every device, with no switch to the plain version; the
+    executor (its ring's K, k·rerank_factor in the int8 tier) and the fused
+    merge check that first. Above MAX_K both serve."""
     from repro_torch.config import HarmonyConfig
     from repro_torch.core import build_ivf, merge_topk
     from repro_torch.serve import ExecutorConfig, SpmdExecutor
 
-    assert (topk_update.MAX_K, topk_update.MAX_C) == (12288, 2 ** 31 - 1)
+    big = 2 ** 31 - 1
+    assert (topk_update.MAX_K, topk_update.MAX_C, topk_update.MAX_INDEX) == (12288, big, big)
     assert 16 * topk_update.MAX_K + 8 * 2048 <= 232_448
-    assert [topk_update.route(k) for k in (1, 256, 257, 4096)] == [1, 1, 2, 2]
-    topk_update.check_limits(12288, 2 ** 31 - 1)
-    for k, c in ((0, 8), (12289, 8), (10, 0), (10, 2 ** 31)):
-        with pytest.raises(ValueError, match="12288" if k in (0, 12289) else "C="):
+    assert [topk_update.route(k) for k in (1, 256, 257, 12288, 12289, big)] == [1, 1, 2, 2, 3, 3]
+    topk_update.check_limits(12289, 8)
+    topk_update.check_limits(big, big)
+    for k, c in ((0, 8), (big + 1, 8), (10, 0), (10, big + 1)):
+        with pytest.raises(ValueError, match=str(big) if c == 8 else "C="):
             topk_update.check_limits(k, c)
     with pytest.raises(ValueError, match="CUDA"):     # C past 4096 is taken
         topk_update.running_topk_update(*_t(*_mk_topk(2, 4097, 8)), k=8)
+    with pytest.raises(ValueError, match="CUDA"):     # and K past 12288
+        topk_update.running_topk_update(*_t(*_mk_topk(2, 8, 12289)), k=12289)
     x = np.random.default_rng(0).normal(size=(600, 8)).astype(np.float32)
     cfg = HarmonyConfig(dim=8, nlist=4, nprobe=2, topk=5, kmeans_iters=2)
     index = build_ivf(x, cfg, device="cpu")
@@ -450,16 +459,22 @@ def test_topk_limits_raise_before_any_launch():
     int8 = SpmdExecutor(index, ExecutorConfig(precision="int8"), device="cpu")
     assert int8.search_batch(x[:2], k=65).stats["rerank_k"] == 260
     assert int8.search_batch(x[:2], k=150).stats["rerank_k"] == 600    # K' = nb
-    assert SpmdExecutor(index, device="cpu").search_batch(x[:2], k=257).ids.shape == (2, 257)
-    calls = ops.launch_counts()["running_topk_ref"]
     fp32 = SpmdExecutor(index, device="cpu")
-    with pytest.raises(ValueError, match="12288"):
-        fp32.search_batch(x[:2], k=12289)
-    with pytest.raises(ValueError, match="12288"):
-        fp32.warmup(k=12289)
-    with pytest.raises(ValueError, match="12288"):
+    assert fp32.search_batch(x[:2], k=257).ids.shape == (2, 257)
+    huge = fp32.search_batch(x[:2], k=12289)       # more than the 600 rows
+    assert huge.ids.shape == (2, 12289)
+    assert ((huge.ids >= 0).sum(1) <= 600).all() and (huge.ids[:, 600:] == -1).all()
+    merged = merge_topk([(np.zeros((2, 8), np.float32), np.arange(16).reshape(2, 8))],
+                        12289, fused=True, device="cpu")
+    assert merged[1].shape == (2, 12289) and (merged[1][:, 8:] == -1).all()
+    calls = ops.launch_counts()["running_topk_ref"]
+    with pytest.raises(ValueError, match=str(big)):
+        fp32.search_batch(x[:2], k=big + 1)
+    with pytest.raises(ValueError, match=str(big)):
+        fp32.warmup(k=big + 1)
+    with pytest.raises(ValueError, match=str(big)):
         merge_topk([(np.zeros((2, 8), np.float32), np.zeros((2, 8), np.int64))],
-                   12289, fused=True, device="cpu")
+                   big + 1, fused=True, device="cpu")
     assert ops.launch_counts()["running_topk_ref"] == calls
 
 
@@ -482,6 +497,30 @@ def test_cuda_topk_above_64_and_merge_shapes():
                     gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
                     ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
                     assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
+
+
+@pytest.mark.cuda
+def test_cuda_huge_k_route():
+    """The top-K kernel's route 3 (K > 12288: one CTA a row, the list in
+    global memory, merged window by window into the output or a scratch
+    list) bit-equal to the plain version, with full and broadcast ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    ops.reset_launch_counts()
+    for k in (12289, 16384, 20000):
+        for c in (256, 4096, 12289):
+            for kind in ("uniform", "path", "run_last", "finite_chunk"):
+                for run_filled in (True, False):
+                    s, ids, rs, ri = (a.to(dev) for a in _t(*_mk_topk(
+                        3, c, k, seed=c + k, kind=kind, run_filled=run_filled,
+                        ties=kind == "uniform")))
+                    for ids_form in (ids, ids[0].expand(3, c)):
+                        gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
+                        ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
+                        assert torch.equal(gs, ws) and torch.equal(gi, wi), (c, k, kind)
+    counts = ops.launch_counts()
+    assert counts["running_topk_update_huge_k"] == counts["running_topk_update"] > 0
 
 
 @pytest.mark.cuda

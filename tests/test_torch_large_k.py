@@ -63,3 +63,45 @@ def test_large_k_server_matches_reference(anns, precision, k, backend, lifecycle
         assert all(key[2] == ring_k for key in ex.trace_counts)
         assert ops.launch_counts()["running_topk_ref"] > 0
         assert ops.launch_counts()["running_topk_update"] == 0
+
+
+@pytest.mark.parametrize("precision,k", [("fp32", 12289), ("int8", 3073)])
+def test_huge_k_server_matches_reference(precision, k):
+    """k above the top-K kernel's route 2 (K > 12288: route 3 on the card):
+    an fp32 spmd server at k = 12289, and an int8 one at k = 3073 over
+    12400 rows, whose ring runs at K' = 4 · 3073 = 12292, answer as the
+    reference's do on a plane with tombstones. Then a delta (two parts in
+    the fused merge at C = K = k): equal to the exact top-k over the live
+    set. (The reference's fused merge runs its Pallas kernel in interpret
+    mode on the CPU, minutes at this K, so the two-part case is held
+    against the brute force.) Every probe is taken, so search is exact."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((12400, 8)).astype(np.float32)
+    cfg = RCfg(dim=8, nlist=8, nprobe=8, topk=5, kmeans_iters=2)
+    ref = RSegmented.build(x, cfg)
+    ref.delete(rng.choice(12400, 30, replace=False))
+    q = (x[:2] + 0.05 * rng.standard_normal((2, 8))).astype(np.float32)
+    ecfg = dict(qb_buckets=(8,), chunk=256)
+    r = RServer(ref, n_nodes=2, backend="spmd", precision=precision,
+                executor_cfg=RExCfg(use_pallas=False, **ecfg))
+    t = HarmonyServer(port_plane(ref), n_nodes=2, backend="spmd", precision=precision,
+                      executor_cfg=ExecutorConfig(**ecfg), device="cpu")
+    ops.reset_launch_counts()
+    tr, rr = t.search_batch(q, k=k), r.search_batch(q, k=k)
+    assert tr.ids.shape == (2, k) and (tr.ids >= 0).all()
+    assert_matches_oracle(tr, rr)
+    ring_k = k if precision == "fp32" else 4 * k
+    assert topk_update.route(ring_k) == 3
+    ex = t._seg_states[0].executors[precision]
+    assert all(key[2] == ring_k for key in ex.trace_counts)
+    assert ops.launch_counts()["running_topk_ref"] > 0
+    assert ops.launch_counts()["running_topk_update"] == 0
+    t.upsert(np.arange(20_000, 20_050), (x[:50] + 0.01).astype(np.float32))
+    res = t.search_batch(q, k=k)
+    live_ids, live_x = t.data.live_vectors()
+    d = ((q[:, None, :].astype(np.float64) - live_x[None].astype(np.float64)) ** 2).sum(2)
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    np.testing.assert_allclose(res.scores, np.take_along_axis(d, order, 1),
+                               rtol=1e-3, atol=1e-3)
+    if precision == "fp32":
+        assert (np.sort(res.ids, 1) == np.sort(live_ids[order], 1)).mean() > 0.999

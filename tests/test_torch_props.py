@@ -1,4 +1,4 @@
-"""Property tests P7, P8 and P10 of ``tests/properties/test_props.py``
+"""Property tests P7, P8, P9 and P10 of ``tests/properties/test_props.py``
 through the port (CPU), with the reference's own hypothesis settings.
 
   P7  arbitrary interleavings of upsert/delete/seal/merge on the mutable
@@ -6,6 +6,9 @@ through the port (CPU), with the reference's own hypothesis settings.
       vector set on both serving backends;
   P8  the fused-kernel ``merge_topk`` equals the host heap merge for any
       part layout, external ids beyond int32 included;
+  P9  a crash at any instant (a torn WAL record, any compactor phase
+      boundary, the checkpoint write or publish window) recovers from disk
+      to exactly the acknowledged writes: none lost, none resurrected;
   P10 filtered search is exact: random per-row metadata and random filter
       trees, served at full coverage, equal the brute force restricted to
       the filter's allowed set, on both backends and in both precisions,
@@ -150,6 +153,134 @@ def test_p8_fused_merge_topk_equals_heap(nq, k, widths, huge_ids, dup_scores, se
     f2 = merge_topk(parts, k, fused=True, device="cpu")
     h2 = merge_topk(parts, k, fused=False)
     assert np.array_equal(f2[1], fused_i) and np.array_equal(h2[1], host_i)
+
+
+@given(
+    data_seed=st.integers(0, 50),
+    backend=st.sampled_from(["host", "spmd"]),
+    ops=st.lists(
+        st.tuples(
+            st.sampled_from(["insert", "overwrite", "delete",
+                             "checkpoint", "compact"]),
+            st.integers(0, 10_000),
+        ),
+        min_size=1, max_size=8,
+    ),
+    crash=st.sampled_from([
+        "clean", "torn_wal",
+        "compactor.begin", "compactor.seal",
+        "compactor.prepare", "compactor.commit",
+        "checkpoint.write", "checkpoint.publish",
+    ]),
+)
+@settings(max_examples=8, deadline=None)
+def test_p9_crash_recovery_equals_acknowledged_oracle(data_seed, backend, ops, crash):
+    import tempfile
+    from pathlib import Path
+
+    from repro_torch.checkpoint import (
+        Checkpointer,
+        WriteAheadLog,
+        checkpoint_segmented_index,
+        recover_segmented_index,
+    )
+    from repro_torch.runtime.faults import FaultSpec, InjectedFault, fault_scope
+    from repro_torch.serve.compactor import Compactor
+
+    nb, dim, k = 64, 8, 4
+    rng0 = np.random.default_rng(data_seed)
+    x = rng0.standard_normal((nb, dim)).astype(np.float32)
+    # nprobe = nlist: search over the recovered plane is exact
+    cfg = HarmonyConfig(dim=dim, nlist=4, nprobe=4, topk=k, kmeans_iters=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data = SegmentedIndex.build(x, cfg, device="cpu")
+        ckpt = Checkpointer(root / "ckpt", keep=3)
+        wal = WriteAheadLog(root / "wal", sync=False)
+        data.attach_wal(wal)
+        # the base build predates the WAL: one durable point covers it
+        checkpoint_segmented_index(ckpt, data, wal)
+
+        model = {i: x[i].copy() for i in range(nb)}
+        deleted: set = set()
+        next_id = nb
+        for kind, s in ops:
+            r = np.random.default_rng(s)
+            if kind == "insert":
+                v = r.standard_normal((1, dim)).astype(np.float32)
+                data.upsert(np.array([next_id], np.int64), v)
+                model[next_id] = v[0]
+                deleted.discard(next_id)
+                next_id += 1
+            elif kind == "overwrite" and model:
+                tid = sorted(model)[int(r.integers(0, len(model)))]
+                v = r.standard_normal((1, dim)).astype(np.float32)
+                data.upsert(np.array([tid], np.int64), v)
+                model[tid] = v[0]
+            elif kind == "delete" and model:
+                tid = sorted(model)[int(r.integers(0, len(model)))]
+                data.delete(np.array([tid], np.int64))
+                del model[tid]
+                deleted.add(tid)
+            elif kind == "checkpoint":
+                checkpoint_segmented_index(ckpt, data, wal)
+            elif kind == "compact":
+                data.compact_inline(merge_all=bool(s % 2))
+
+        # the crash: each branch leaves the disk as a process kill could,
+        # then recovery reads the disk alone
+        if crash == "torn_wal":
+            # a power cut mid-append: a partial frame reaches the disk, the
+            # write is never acknowledged, so the model must not see it
+            v = rng0.standard_normal((1, dim)).astype(np.float32)
+            with fault_scope(FaultSpec("wal.append", kind="torn")):
+                with pytest.raises(InjectedFault):
+                    data.upsert(np.array([next_id], np.int64), v)
+        elif crash.startswith("compactor."):
+            comp = Compactor(data, device="cpu")
+            with fault_scope(FaultSpec(crash, kind="crash")):
+                with pytest.raises(InjectedFault):
+                    comp.run_once(merge_all=True)
+        elif crash.startswith("checkpoint."):
+            with fault_scope(FaultSpec(crash, kind="crash")):
+                with pytest.raises(InjectedFault):
+                    checkpoint_segmented_index(ckpt, data, wal)
+        acked_seq = data.wal_seq
+        wal.close()
+
+        data2, wal2, report = recover_segmented_index(
+            ckpt, root / "wal", cfg=cfg, sync=False, device="cpu"
+        )
+        try:
+            # no acknowledged write lost, no phantom write
+            assert data2.wal_seq == acked_seq
+            if crash == "torn_wal":
+                assert report["torn_tail"]
+                assert not data2.has(next_id), "unacknowledged write resurrected"
+            for i in model:
+                assert data2.has(i), f"acknowledged id {i} lost"
+            for i in deleted:
+                if i not in model:
+                    assert not data2.has(i), f"deleted id {i} resurfaced"
+            srv = _server(data2, backend)
+            q = rng0.standard_normal((4, dim)).astype(np.float32)
+            probe_id = sorted(model)[-1]
+            q[0] = model[probe_id]
+            res = srv.search_batch(q, k=k)
+            ids_m = np.array(sorted(model), np.int64)
+            xs = np.stack([model[i] for i in ids_m])
+            sc = exact_scores(xs, q, cfg.metric)
+            order = np.argsort(sc, axis=1, kind="stable")[:, :k]
+            want_s = np.full((4, k), np.inf, np.float32)
+            kk = min(k, len(model))
+            want_s[:, :kk] = np.take_along_axis(sc, order, axis=1)[:, :kk]
+            finite = np.isfinite(want_s)
+            np.testing.assert_allclose(res.scores[finite], want_s[finite],
+                                       rtol=1e-3, atol=1e-3)
+            assert probe_id in res.ids[0]
+            assert not np.isin(res.ids, list(deleted) or [-999]).any()
+        finally:
+            wal2.close()
 
 
 def _random_filter(r: np.random.Generator):

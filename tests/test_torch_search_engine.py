@@ -354,20 +354,23 @@ def test_merge_topk_int32_gate_and_limits():
     np.testing.assert_array_equal(np.where(gi >= 3_000_000_000,
                                            gi - 3_000_000_000 + 60_000, gi), si)
     # K above 256 folds on the kernel's second route, as the reference's
-    # fused merge does; beyond its shared-memory limit it raises before any
-    # launch, on any device
+    # fused merge does; above 12288 on its third; beyond its int index it
+    # raises before any launch, on any device
     wide = _parts(np.random.default_rng(13), 3, 300, 2, ties=True, big_ids=False)
     gs, gi = merge_topk(wide, 300, fused=True, device="cpu")
     ws, wi = r_merge(wide, 300, fused=True)
     np.testing.assert_array_equal(gs, ws)
     np.testing.assert_array_equal(gi, wi)
-    kref.running_topk_ref.calls = 0
     big = [(np.zeros((2, 8), np.float32), np.zeros((2, 8), np.int64))]
-    with pytest.raises(ValueError, match="12288"):
-        merge_topk(big, 12289, fused=True, device="cpu")
-    assert kref.running_topk_ref.calls == 0
+    gs, gi = merge_topk(big, 12289, fused=True, device="cpu")
     s, i = merge_topk(big, 12289)                  # the host merge takes any K
     assert s.shape == (2, 12289)
+    np.testing.assert_array_equal(gs, s)
+    np.testing.assert_array_equal(gi, i)
+    kref.running_topk_ref.calls = 0
+    with pytest.raises(ValueError, match="2147483647"):
+        merge_topk(big, 2 ** 31, fused=True, device="cpu")
+    assert kref.running_topk_ref.calls == 0
     with pytest.raises(ValueError):
         merge_topk([], 5)
 

@@ -3,10 +3,10 @@ executor that keeps its packed arrays in host memory and streams each
 batch's probed rows, bit-identically to the device tier.
 
 Mirrors of ``tests/test_tiered.py``'s tier-invariant serving and prefetch
-cases. The port has no placement policy yet (``serve/placement.py``), so
-a tier move runs the sequence ``apply_placement`` runs:
-``srv.prepare_placement(tiers)``, ``data.set_tiers(tiers)``,
-``srv.adopt()``.
+cases. A tier move here runs the mechanism's own sequence, the one
+``apply_placement`` runs: ``srv.prepare_placement(tiers)``,
+``data.set_tiers(tiers)``, ``srv.adopt()``; the placement policy itself
+is tested in ``tests/test_torch_placement.py``.
 """
 
 import dataclasses
