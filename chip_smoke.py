@@ -21,8 +21,11 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    bytes/operations bound at the main path's shapes (CUDA events), with
    each kernel's grid size (``ctas``) and each distance kernel's time
    when no tile is dead.
-3. Serving, fp32: build a SIFT1M-shaped IVF index on the card (1M × 128
-   fp32 rows, nlist 1024, nprobe 16, top-10) and serve batches of
+3. Serving, fp32: build a SIFT1M-shaped IVF index for the card (1M × 128
+   fp32 rows, nlist 1024, nprobe 16, top-10; the k-means runs on the
+   card, the rows stay in pinned host memory, and the card must hold
+   under 5 % of their bytes before any executor is built) and serve
+   batches of
    1, 8, 32, 128 and 160 queries through ``SpmdExecutor.search_batch`` on
    the virtual meshes 1×1 and 2×2; every batch must equal the exact
    ``search_oracle`` on the card, and the kernels' launch counters must
@@ -80,8 +83,9 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
 10. Durability (``durable``, ``durable_torn``), on the plane phases 5–6
     left: a WAL (``sync=True``) under ``build/``, a write burst, a
     checkpoint, a burst in the WAL only; a "crash" that drops the server
-    and the plane (the card's memory must fall), ``recover_segmented_index``
-    onto the card and a fresh server, whose 128-query batch must equal the
+    and the plane (the card's memory must fall by the executors' rows),
+    ``recover_segmented_index`` for the card (the recovered plane's rows
+    stay on the host) and a fresh server, whose 128-query batch must equal the
     pre-crash batch bit for bit and ``engine_oracle``; then a write torn
     mid-record, a second crash and recovery, equal to the oracle of every
     write but the torn one.
@@ -92,16 +96,31 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
     while batches are served; each step's batch against ``engine_oracle``.
 12. Placement (``placement``): ``plan_placement`` at 25 % of the plane's
     ``segment_device_bytes``, ``apply_placement``; a batch bit-identical to
-    the device tier's, and the memory report beside the card's memory.
+    the device tier's, and the memory report beside the card's memory: the
+    card's memory must fall by at least the report's device bytes, and no
+    row of a demoted segment stays on the card.
 
 The kernel checks of phase 2 also hold the top-K kernel's route 2 (K in
 {320, 512, 1024, 4096} × C in {256, 4096, 8192}, the merge at k = 300) and
 route 3 (K in {12289, 16384, 20000} × C in {256, 4096, 12289}, and the
 served shapes) bit for bit, and the distance kernel's bf16-row route at the
-f32 route's rule; phase 2's timing covers every route. Each of phases 3–12
+f32 route's rule; phase 2's timing covers every route. Each of phases 3–16
 resets the launch counts before it and reads them after it.
 
-13. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+13-16. The serving plane (``serve_plane``) on a plane of the index as one
+    sealed segment (spmd executors, ``n_nodes=8``), with one 2048-request
+    trace (``examples/serve_anns.py``'s: Poisson, skew 0.0 then 0.85 on
+    4 % of the clusters) and its ``engine_oracle``: the scheduler at 0.7x
+    and 1.5x the warm server's sustained rate with node 3 failed halfway,
+    then ``HarmonyServer.serve`` on the 0.7x trace (``serve_sched``); the
+    query cache over 512 requests with repeats, near-duplicates and an
+    upsert burst (``serve_cache``); a two-replica fleet with a replica
+    fault (``serve_fleet``); the live front-end over that fleet and over
+    one replica, open loop on the wall clock (``serve_frontend``). Every
+    row equals the oracle; each phase's counts are set to 0 before it.
+17. ``python -m repro_torch.launch.serve`` at 1M rows in a subprocess
+    (``launch``).
+18. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -1202,7 +1221,7 @@ def live_sealed_ids(data, rng, n, below):
 
 
 def serve_durable(dev, smi, holder, root, ds, q128):
-    """Phases 10 and 11 (``durable``, ``durable_torn``) on the plane
+    """Phase 10 (``durable``, ``durable_torn``) on the plane
     ``serve_engine`` left (``holder`` holds its only reference). A WAL
     (``sync=True``) is attached, a write burst lands, the plane is
     checkpointed, a second burst lands in the WAL only; a 128-query batch
@@ -1276,13 +1295,18 @@ def serve_durable(dev, smi, holder, root, ds, q128):
     del srv, data, wal
     gc.collect()
     mb_crashed = device_mb()
-    # at least the sealed rows go (their executors' copies too)
+    # the executors' copies of the sealed rows go (the rows themselves are
+    # host memory)
     assert mb_crashed < mb_live - 0.9 * rows_mb, f"the crash freed {mb_live - mb_crashed} MB"
     t0 = time.perf_counter()
     data, wal, report = recover_segmented_index(ckpt, wal_dir, sync=True, device=dev)
-    device_mb()
+    mb_recovered_plane = device_mb()
     recover_s = time.perf_counter() - t0
-    assert data.device == dev and data.segments[0].index.x.device == dev
+    # the recovered plane holds its rows on the host: the card gets them
+    # back with the executors, not with the plane
+    assert mb_recovered_plane - mb_crashed < 0.05 * rows_mb, (mb_crashed, mb_recovered_plane)
+    assert data.device == dev and all(s.index.device == dev and s.index.x.device.type == "cpu"
+                                      for s in data.segments)
     assert report["replayed"] == 3 and not report["torn_tail"], report
     assert data.wal_seq == acked_seq
     srv = HarmonyServer(data, n_nodes=4, backend="spmd", executor_cfg=ExecutorConfig(),
@@ -1299,7 +1323,8 @@ def serve_durable(dev, smi, holder, root, ds, q128):
         checkpoint_bytes=ckpt_bytes, checkpoint_s=ckpt_s, records_replayed=report["replayed"],
         recover_s=recover_s, first_batch_wall_ms=post.stats["wall_s"] * 1e3,
         pre_crash_wall_ms=pre.stats["wall_s"] * 1e3, device_mb_live=mb_live,
-        device_mb_after_crash=mb_crashed, device_mb_recovered=device_mb(), rows_mb=rows_mb,
+        device_mb_after_crash=mb_crashed, device_mb_recovered_plane=mb_recovered_plane,
+        device_mb_recovered=device_mb(), rows_mb=rows_mb,
         seconds=time.perf_counter() - t_phase, card=smi)
 
     # durable_torn: a write torn mid-record by a power cut; recovery drops it
@@ -1337,7 +1362,7 @@ def serve_durable(dev, smi, holder, root, ds, q128):
 
 
 def serve_compactor(dev, smi, data, srv, ds, q128):
-    """Phase 12 (``compactor``) on the recovered plane: ``Compactor`` seals
+    """Phase 11 (``compactor``) on the recovered plane: ``Compactor`` seals
     the delta (``delta_full``), then merges every segment into one
     (``too_many_segments``): the retired segments' executors must go at the
     adopt, so the card's memory after the merge may not hold the old
@@ -1394,8 +1419,8 @@ def serve_compactor(dev, smi, data, srv, ds, q128):
     mb_after = device_mb()
     assert ev["merge_all"] and data.n_segments == 1 and data.delta_len == 0
     freed = all(r() is None for r in old_execs)
-    # the old plane (rows and executors, ~2x its rows) is gone: what is left
-    # is the new one, about the same size
+    # the old executors are gone: what is left is the new segment's, about
+    # the same size (the rows of both planes are host memory)
     assert freed and mb_after < mb_before + 0.25 * old_rows_mb, (mb_before, mb_after)
     check("merge_all", ev, dict(device_mb_before=mb_before,
                                 old_executors_freed=freed, old_rows_mb=old_rows_mb))
@@ -1435,7 +1460,7 @@ def serve_compactor(dev, smi, data, srv, ds, q128):
 
 
 def serve_placement(dev, smi, data, srv, q128):
-    """Phase 13 (``placement``): ``plan_placement`` at a device budget of
+    """Phase 12 (``placement``): ``plan_placement`` at a device budget of
     25 % of the plane's ``segment_device_bytes``, installed by
     ``apply_placement``; the memory report, the tiers and the fall of the
     card's memory are logged, and a batch must equal the device tier's
@@ -1469,10 +1494,13 @@ def serve_placement(dev, smi, data, srv, q128):
     assert np.array_equal(res.ids, hot.ids) and np.array_equal(res.scores, hot.scores), \
         "the placed plane's batch differs from the device tier's"
     host_rows_mb = sum(s.index.x.numel() * 4 for s in data.segments
-                       if tiers[s.seg_id] == "host") / 2 ** 20
+                       if tiers[s.seg_id] == "host" and s.index.x.device.type == "cuda") / 2 ** 20
+    report_drop_mb = (rep0["device_bytes"] - rep1["device_bytes"]) / 2 ** 20
+    # no rows of a demoted segment stay on the card
+    assert host_rows_mb == 0 and mb0 - mb1 >= report_drop_mb, (mb0 - mb1, report_drop_mb)
     log(phase="placement", budget_bytes=budget, costs=costs, tiers=tiers,
         memory_report_before=rep0, memory_report_after=rep1,
-        report_device_drop_mb=(rep0["device_bytes"] - rep1["device_bytes"]) / 2 ** 20,
+        report_device_drop_mb=report_drop_mb,
         measured_device_drop_mb=mb0 - mb1, measured_drop_after_a_batch_mb=mb0 - mb2,
         host_tier_index_rows_on_card_mb=host_rows_mb,
         host_segment_device_bytes_mb=sum(segment_device_bytes(s) for s in data.segments
@@ -1610,7 +1638,7 @@ def filtered_oracle(dev, index, u, dead, delta, q, k, lo, hi):
     probes = np.where(bad, probes[:, :1], probes)
     nq = q.shape[0]
     parts_s, parts_i = [], []
-    x64 = index.x.double()
+    x64 = index.x.to(dev).double()         # freed with the call
     xn = (x64 * x64).sum(1)
     allowed_t = torch.as_tensor(~excluded, device=dev)
     cl = torch.as_tensor(index.cluster_of.astype(np.int64), device=dev)
@@ -1822,6 +1850,475 @@ def serve_filtered_and_tiered(dev, smi, index, ds, q_all):
     return filtered_counts, tiered_counts
 
 
+# ------------------------------------------------------------ serving plane
+def request_trace(ds, n_req, seed=0):
+    """``examples/serve_anns.py``'s trace at unit rate: Poisson arrival
+    times (divide by a rate in queries per second) whose workload drifts
+    halfway from uniform (skew 0.0) to skewed (0.85 on 4 % of the
+    clusters). Returns (unit-rate arrival times, queries)."""
+    from repro_torch.data import make_queries
+
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.exponential(1.0, size=n_req))
+    half = n_req // 2
+    qu = make_queries(ds, nq=half, skew=0.0, noise=0.2, seed=seed + 1)
+    qh = make_queries(ds, nq=n_req - half, skew=0.85, hot_fraction=0.04, noise=0.2,
+                      seed=seed + 2)
+    return t, np.concatenate([qu, qh]).astype(np.float32)
+
+
+def profiled(fn):
+    """Run ``fn`` under the profiler (device activity only: a window of a
+    few batches holds ~10^5 kernels) and return (its result, the card's
+    busy ms, the window's wall ms). Busy is the union of the device
+    events' spans, read from the raw trace (a kernel launched by a thread
+    the profiler has no operator for is kept); the wall starts once the
+    profiler runs."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_ns += b - a
+            end = b
+        elif b > end:
+            busy_ns += b - end
+            end = b
+    return out, busy_ns / 1e6, wall_ms
+
+
+def idle_share(busy_ms, wall_ms):
+    return 1.0 - busy_ms / wall_ms if busy_ms > 0 else "not measured"
+
+
+def check_served(results, want_s, want_i, what):
+    """Served ``RequestResult`` s (req_id = trace position) against the
+    oracle rows; returns how many were checked."""
+    if not results:
+        return 0
+    rid = np.array([r.req_id for r in results])
+    ids = np.stack([r.ids for r in results])
+    scores = np.stack([r.scores for r in results])
+    assert_topk_matches(scores, ids, want_s[rid], want_i[rid], what)
+    return len(results)
+
+
+def sched_summary(stats):
+    s = stats.summary()
+    keys = ("offered", "admitted", "shed", "full_batches", "deadline_batches",
+            "capacity_batches", "skew_replans", "hedged_batches", "replans", "batches",
+            "spmd_batches", "retried_batches", "replica_failures", "failed_batches",
+            "p50_queue_wait_ms", "p99_queue_wait_ms", "p50_request_latency_ms",
+            "p99_request_latency_ms")
+    return {k: s[k] for k in keys if k in s}
+
+
+def serve_sched(dev, smi, index, t_unit, q, want_s, want_i, rate, wall128):
+    """Phase 13 (``serve_sched``): the admission-controlled scheduler with
+    measured service times on the SIFT1M-shaped plane. The trace runs at
+    0.7x and 1.5x the rate the warm server sustains at 128 queries a batch
+    (``SchedulerConfig(max_batch=128, max_wait_s=<one warm batch>,
+    queue_capacity=512, replan_drift=0.15)``, node 3 failed halfway), each
+    on a fresh server; the first run's opening window is profiled. Every
+    served row equals ``engine_oracle``. Then ``HarmonyServer.serve`` takes
+    the 0.7x trace as 16 batches with their arrivals: its rows equal the
+    scheduler's, shed rows -1 / +inf. Returns the path's counts."""
+    import gc
+
+    from repro_torch.core import SearchRequest, SegmentedIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve import HarmonyServer, SchedulerConfig, ServingScheduler
+
+    n_req = len(q)
+    cfg = SchedulerConfig(max_batch=128, max_wait_s=wall128, queue_capacity=512,
+                          replan_drift=0.15)
+    data = SegmentedIndex.from_static(index)
+    ops.reset_launch_counts()
+    base = None
+    for mult in (0.7, 1.5):
+        t_run = time.perf_counter()
+        arrivals = t_unit / (mult * rate)
+        srv = HarmonyServer(data, n_nodes=8, device=dev)
+        killed = {}
+
+        def halfway(bi, sched, srv=srv, killed=killed):
+            if not killed and sched.stats.offered >= n_req // 2:
+                srv.fail_node(3)
+                killed["batch"] = bi
+
+        sched = ServingScheduler(srv, cfg, k=10, on_batch=halfway)   # warms the ladder
+        setup_s = time.perf_counter() - t_run
+        reqs = [SearchRequest(vector=v) for v in q]
+        t0 = time.perf_counter()
+        window = 128 if mult == 0.7 else 0
+        if window:
+            _, busy_ms, win_ms = profiled(
+                lambda: [sched.submit(reqs[i], float(arrivals[i])) for i in range(window)])
+        for i in range(window, n_req):
+            sched.submit(reqs[i], float(arrivals[i]))
+        done = sched.flush()
+        wall_s = time.perf_counter() - t0
+        st = srv.stats
+        assert len(done) == st.admitted == n_req - st.shed and killed, (len(done), killed)
+        assert srv.cluster.n_live == 7 and st.spmd_batches == st.batches > 0
+        checked = check_served(done, want_s, want_i, f"serve_sched x{mult}")
+        log(phase="serve_sched", rate_x=mult, offered_qps=mult * rate, n_req=n_req,
+            setup_s=setup_s, **sched_summary(st), node_failed_after_batch=killed["batch"],
+            rows_checked=checked, virtual_makespan_s=sched.makespan_s,
+            virtual_served_qps=sched.served_qps, wall_s=wall_s,
+            busy_batch_wall_s=st.wall_s,
+            profile_window_requests=window or None,
+            profile_window_busy_ms=busy_ms if window else None,
+            profile_window_wall_ms=win_ms if window else None,
+            device_idle_share=idle_share(busy_ms, win_ms) if window else None,
+            card=smi)
+        if mult == 0.7:
+            base = {r.req_id: r for r in done}
+        del sched, srv, done
+        gc.collect()
+
+    # HarmonyServer.serve on the 0.7x trace: 16 batches with their arrivals
+    arrivals = t_unit / (0.7 * rate)
+    srv = HarmonyServer(data, n_nodes=8, device=dev)
+    t0 = time.perf_counter()
+    outs = srv.serve([q[i:i + 128] for i in range(0, n_req, 128)], k=10, sched=cfg,
+                     arrivals=[arrivals[i:i + 128] for i in range(0, n_req, 128)])
+    serve_s = time.perf_counter() - t0
+    ids, scores = np.concatenate([o.ids for o in outs]), np.concatenate([o.scores for o in outs])
+    shed = ids[:, 0] == -1
+    assert (ids[shed] == -1).all() and np.isinf(scores[shed]).all()
+    both_ = [i for i in range(n_req) if not shed[i] and i in base]
+    sel = np.array(both_)
+    assert_topk_matches(scores[sel], ids[sel], np.stack([base[i].scores for i in both_]),
+                        np.stack([base[i].ids for i in both_]), "serve() vs the scheduler")
+    assert_topk_matches(scores[~shed], ids[~shed], want_s[~shed], want_i[~shed],
+                        "serve() vs the oracle")
+    log(phase="serve_sched_serve", batches_in=len(outs), rows=n_req, shed_rows=int(shed.sum()),
+        rows_equal_to_the_scheduler=len(both_), seconds=serve_s,
+        **sched_summary(srv.stats), card=smi)
+    counts = ops.launch_counts()
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "serve_sched")
+    del srv, outs
+    gc.collect()
+    return counts
+
+
+def serve_cache(dev, smi, index, ds, rate, wall128):
+    """Phase 14 (``serve_cache``): ``CacheConfig(enabled=True,
+    semantic_threshold=1e-3)`` (squared L2, staleness 0) in front of the
+    scheduler on the same plane. 512 requests at 0.7x the sustained rate:
+    half fresh queries, a quarter exact repeats, a quarter near-duplicates
+    (noise 1e-3 a coordinate, squared distance ~1.3e-4). An upsert burst
+    near the queries lands after the first 256: the epoch invalidates the
+    cache. Every exact hit and execution equals ``engine_oracle`` of the
+    data state it was served against; every semantic hit's distances are
+    within sqrt(threshold) of it (P11). Returns the path's counts."""
+    import gc
+
+    from repro_torch.core import SearchRequest, SegmentedIndex
+    from repro_torch.data import make_queries
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (
+        CacheConfig,
+        HarmonyServer,
+        SchedulerConfig,
+        ServingScheduler,
+    )
+
+    thr = 1e-3
+    rng = np.random.default_rng(8)
+    fresh = make_queries(ds, nq=256, skew=0.3, seed=9)
+    kinds = ["fresh"] * 8 + list(rng.permutation(["fresh"] * 248 + ["repeat"] * 128
+                                                 + ["near"] * 128))
+    vecs, nxt = [], 0
+    for kind in kinds:
+        if kind == "fresh":
+            vecs.append(fresh[nxt])
+            nxt += 1
+        else:
+            v = vecs[int(rng.integers(0, len(vecs)))]
+            if kind == "near":
+                v = v + 1e-3 * rng.standard_normal(v.shape[0])
+            vecs.append(np.asarray(v, np.float32))
+    vecs = np.stack(vecs).astype(np.float32)
+    arrivals = np.cumsum(rng.exponential(1.0 / (0.7 * rate), size=len(vecs)))
+    data = SegmentedIndex.from_static(index)
+    srv = HarmonyServer(data, n_nodes=8, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = ServingScheduler(srv, SchedulerConfig(
+        max_batch=128, max_wait_s=wall128, cache=CacheConfig(enabled=True,
+                                                             semantic_threshold=thr)), k=10)
+    setup_s = time.perf_counter() - t0
+    tiers = {}
+
+    def submit(lo, hi):
+        for i in range(lo, hi):
+            st = srv.stats
+            e0, s0 = st.cache_hits_exact, st.cache_hits_semantic
+            rid = sched.submit(SearchRequest(vector=vecs[i]), float(arrivals[i]))
+            tiers[rid] = ("exact" if st.cache_hits_exact > e0 else
+                          "semantic" if st.cache_hits_semantic > s0 else "executed")
+        return {r.req_id: r for r in sched.flush()}
+
+    t0 = time.perf_counter()
+    first = submit(0, 256)
+    assert len(first) == 256
+    want_a = engine_oracle(dev, data.snapshot(), vecs[:256], 10)
+    inval0 = srv.stats.cache_invalidations
+    burst = np.arange(5_000_000, 5_000_256)
+    srv.upsert(burst, (vecs[:256] + 0.01 * rng.standard_normal(vecs[:256].shape)
+                       ).astype(np.float32))
+    # the burst lands after the first half's last completion: the second
+    # half arrives after it on the virtual clock too
+    arrivals[256:] += sched.busy_until - arrivals[256] + 0.05
+    done = submit(256, 512)               # every result so far
+    want_b = engine_oracle(dev, data.snapshot(), vecs[256:], 10)
+    wall_s = time.perf_counter() - t0
+    n_by = {"exact": 0, "semantic": 0, "executed": 0}
+    for rid, r in done.items():
+        ws, wi = (want_a if rid < 256 else want_b)
+        j = rid % 256
+        tier = tiers[rid]
+        n_by[tier] += 1
+        if tier == "semantic":
+            fin = np.isfinite(ws[j])
+            assert np.array_equal(np.isfinite(r.scores), fin), f"cache rid {rid}: padding"
+            gap = np.abs(np.sqrt(r.scores[fin]) - np.sqrt(ws[j][fin]))
+            assert gap.max(initial=0.0) <= np.sqrt(thr) + 1e-3, f"cache rid {rid}: {gap.max()}"
+        else:
+            assert_topk_matches(r.scores[None], r.ids[None], ws[j:j + 1], wi[j:j + 1],
+                                f"cache rid {rid} ({tier})")
+    st = srv.stats
+    assert len(done) == 512 and st.shed == 0
+    assert st.cache_hits_exact > 0 and st.cache_hits_semantic > 0
+    assert st.cache_invalidations > inval0, "the upsert burst invalidated nothing"
+    assert any(tiers[r] == "executed" for r in range(256, 512)
+               if any(np.array_equal(vecs[r], vecs[p]) for p in range(256)))
+    counts = ops.launch_counts()
+    log(phase="serve_cache", n_req=512, semantic_threshold=thr, setup_s=setup_s, wall_s=wall_s,
+        served_by=n_by, cache_hits_exact=st.cache_hits_exact,
+        cache_hits_semantic=st.cache_hits_semantic, cache_misses=st.cache_misses,
+        cache_invalidations=st.cache_invalidations,
+        invalidations_by_the_burst=st.cache_invalidations - inval0,
+        coalesced=st.coalesced, batches=st.batches, queries_executed=st.queries,
+        upserts=len(burst), card=smi)
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "serve_cache")
+    del sched, srv
+    gc.collect()
+    return counts
+
+
+def serve_fleet(dev, smi, index, t_unit, q, want_s, want_i, rate, wall128):
+    """Phase 15 (``serve_fleet``): a ``ReplicaFleet`` of two spmd replicas
+    (capacities 1.0 and 0.5) on the one card over one shared plane,
+    ``routing="p2c"``, hedging at 2x the warm batch wall, the trace at 1.4x
+    one server's sustained rate (the fleet's capacity is 1.5x: replica 1
+    takes work only once replica 0 has a backlog), and a ``FaultPlan``
+    failing ``replica.execute`` once on replica 1 (the batch is retried
+    and served). Every row equals the
+    oracle. Returns (counts, the fleet, its scheduler config)."""
+    import torch
+
+    from repro_torch.core import SearchRequest, SegmentedIndex
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.faults import FaultSpec, fault_scope
+    from repro_torch.serve import ReplicaFleet, ReplicaSpec, SchedulerConfig, ServingScheduler
+
+    data = SegmentedIndex.from_static(index)
+    assert all(s.index.x.device.type == "cpu" for s in data.segments)
+    fleet = ReplicaFleet(data, replicas=[ReplicaSpec(capacity=1.0), ReplicaSpec(capacity=0.5)],
+                         routing="p2c", seed=0, device=dev)
+    replica_mb = []
+    for rep in fleet.replicas:                     # each replica's executors
+        mb = device_mb()
+        rep.server.executor
+        replica_mb.append(device_mb() - mb)
+    hedge_s = 2.0 * wall128
+    cfg = SchedulerConfig(max_batch=128, max_wait_s=wall128, hedge_deadline_s=hedge_s)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = ServingScheduler(fleet, cfg, k=10)
+    setup_s = time.perf_counter() - t0
+    arrivals = t_unit / (1.4 * rate)
+    t0 = time.perf_counter()
+    with fault_scope(FaultSpec("replica.execute", at=1, count=1,
+                               where={"replica": 1})) as plan:
+        done = sched.run_trace([(float(arrivals[i]), SearchRequest(vector=q[i]))
+                                for i in range(len(q))])
+    wall_s = time.perf_counter() - t0
+    s = fleet.stats
+    assert plan.fired == 1 and s.replica_failures == 1 and s.retried_batches >= 1
+    assert s.failed_batches == 0 and len(done) == s.admitted == len(q)
+    checked = check_served(done, want_s, want_i, "serve_fleet")
+    hs = fleet._hedge.stats
+    summ = fleet.summary()
+    counts = ops.launch_counts()
+    log(phase="serve_fleet", n_req=len(q), offered_qps=1.4 * rate, routing="p2c",
+        capacities=[1.0, 0.5], hedge_deadline_ms=hedge_s * 1e3, setup_s=setup_s,
+        per_replica_batches=[r.batches for r in fleet.replicas],
+        per_replica_busy_s=[r.busy_s for r in fleet.replicas],
+        per_replica_spmd_batches=[r.server.stats.spmd_batches for r in fleet.replicas],
+        load_balance_gini=fleet.load_balance_gini, hedges=hs.hedged, hedge_wins=hs.hedge_wins,
+        hedge_win_rate=hs.win_rate, retried_batches=s.retried_batches,
+        replica_failures=s.replica_failures, faults_fired=plan.fired,
+        per_replica_executor_mb=replica_mb,
+        index_rows_mb=sum(s_.index.x.numel() * 4 for s_ in data.segments) / 2 ** 20,
+        index_rows_on_card_mb=sum(s_.index.x.numel() * 4 for s_ in data.segments
+                                  if s_.index.x.device.type == "cuda") / 2 ** 20,
+        rows_checked=checked, virtual_makespan_s=sched.makespan_s,
+        virtual_served_qps=sched.served_qps, wall_s=wall_s,
+        p50_request_latency_ms=summ["p50_request_latency_ms"],
+        p99_request_latency_ms=summ["p99_request_latency_ms"], card=smi)
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "serve_fleet")
+    assert all(r.server.stats.spmd_batches == r.server.stats.batches for r in fleet.replicas)
+    torch.cuda.synchronize()
+    return counts, fleet, cfg
+
+
+def serve_frontend(dev, smi, fleet, cfg, index, t_unit, q, want_s, want_i, rate):
+    """Phase 16 (``serve_frontend``): the live ``ServingFrontend`` over the
+    fleet (``max_inflight=2``) on the wall clock: 1024 requests submitted
+    open loop at the trace's Poisson times (1.5x one server's sustained
+    rate), ``drain()``, ``shutdown()``; no thread is left and every
+    future's row equals the oracle. The same run with a one-replica fleet.
+    The opening window of each run is profiled. Returns the path's counts."""
+    import gc
+    import threading
+
+    from repro_torch.core import SearchRequest
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ReplicaFleet, ServingFrontend
+
+    n = 1024
+    arrivals = t_unit[:n] / (1.5 * rate)
+    reqs = [SearchRequest(vector=v) for v in q[:n]]
+    ops.reset_launch_counts()
+    out = {}
+    for label in ("2_replicas", "1_replica"):
+        if label == "1_replica":
+            fleet = ReplicaFleet(fleet.data, replicas=1, seed=0, device=dev)
+        t0 = time.perf_counter()
+        fe = ServingFrontend(fleet, cfg, k=10, max_inflight=2)      # warms the ladders
+        setup_s = time.perf_counter() - t0
+        futs = []
+
+        def submit(lo, hi, t_start):
+            for i in range(lo, hi):
+                dt = t_start + arrivals[i] - time.perf_counter()
+                if dt > 0:
+                    time.sleep(dt)
+                futs.append(fe.submit(reqs[i]))
+
+        t_start = time.perf_counter()
+        window = 512                # ~2.7 s of arrivals: the first batches run in it
+        _, busy_ms, win_ms = profiled(lambda: submit(0, window, t_start))
+        submit(window, n, t_start)
+        assert fe.drain(timeout=900.0), "the front-end did not drain"
+        results = [f.result(timeout=60.0) for f in futs]
+        wall_s = time.perf_counter() - t_start
+        assert fe.shutdown(timeout=60.0), "the front-end did not shut down"
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith(("harmony-serve", "harmony-dispatch"))]
+        assert fe.stats.shutdown_leaks == 0 and not alive, alive
+        checked = check_served(results, want_s, want_i, f"serve_frontend {label}")
+        s = fe.summary()
+        hs = fleet._hedge.stats if fleet._hedge is not None else None
+        out[label] = s["served_qps"]
+        log(phase="serve_frontend", replicas=len(fleet.replicas), max_inflight=2,
+            n_req=n, offered_qps=1.5 * rate, setup_s=setup_s, wall_s=wall_s,
+            wall_qps=n / wall_s, served_qps=s["served_qps"], makespan_s=s["makespan_s"],
+            p50_request_latency_ms=s["p50_request_latency_ms"],
+            p99_request_latency_ms=s["p99_request_latency_ms"],
+            p50_queue_wait_ms=s["p50_queue_wait_ms"], p99_queue_wait_ms=s["p99_queue_wait_ms"],
+            batches=s["full_batches"] + s["deadline_batches"] + s["capacity_batches"],
+            per_replica_batches=[r.batches for r in fleet.replicas],
+            hedges=hs.hedged if hs else 0, hedge_wins=hs.hedge_wins if hs else 0,
+            shutdown_leaks=fe.stats.shutdown_leaks, threads_left=len(alive),
+            rows_checked=checked, profile_window_requests=window,
+            profile_window_busy_ms=busy_ms, profile_window_wall_ms=win_ms,
+            device_idle_share=idle_share(busy_ms, win_ms), card=smi)
+        del fe, futs, results
+    counts = ops.launch_counts()
+    log(phase="serve_frontend_scaling", qps_2_over_1=out["2_replicas"] / out["1_replica"],
+        card=smi)
+    assert_path_on_kernels(counts, ("partial_distance_update", "running_topk_update"),
+                           "serve_frontend")
+    del fleet
+    gc.collect()
+    return counts
+
+
+def serve_launch(smi):
+    """Phase 17 (``launch``): ``python -m repro_torch.launch.serve --nb
+    1000000 --nlist 1024 --batches 8 --fail-node 3`` in a subprocess on
+    the card; it must exit 0 with every batch on the spmd executors."""
+    import os
+
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--nb", "1000000",
+           "--nlist", "1024", "--batches", "8", "--fail-node", "3"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, f"launch exited {proc.returncode}: {proc.stderr[-3000:]}"
+    lines = proc.stdout.strip().splitlines()
+    assert "spmd batches=8" in lines[-1], lines
+    log(phase="launch", cmd=" ".join(cmd[1:]), seconds=seconds, rc=proc.returncode,
+        stdout=lines, card=smi)
+
+
+def serve_plane(dev, smi, index, ds):
+    """Phases 13-16: the serving plane on the SIFT1M-shaped plane (the
+    index as one sealed segment, spmd executors, n_nodes 8, top-10). One
+    2048-request trace and its ``engine_oracle`` serve the scheduler, the
+    fleet and the front-end. Returns the counts of each phase's path."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import SegmentedIndex
+    from repro_torch.serve import HarmonyServer
+
+    t_phase = time.perf_counter()
+    t_unit, q = request_trace(ds, 2048, seed=0)
+    data = SegmentedIndex.from_static(index)
+    srv = HarmonyServer(data, n_nodes=8, device=dev)
+    mb = device_mb()
+    srv.warmup_executors(k=10)
+    walls = [srv.search_batch(q[:128]).stats["wall_s"] for _ in range(3)]
+    wall128 = float(np.median(walls))
+    rate = 128 / wall128
+    want_s, want_i = engine_oracle(dev, data.snapshot(), q, 10)
+    log(phase="serve_plane_setup", seconds=time.perf_counter() - t_phase,
+        warm_128_walls_ms=[w * 1e3 for w in walls], sustained_qps=rate,
+        executor_mb=device_mb() - mb, card=smi)
+    del srv, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = [serve_sched(dev, smi, index, t_unit, q, want_s, want_i, rate, wall128)]
+    paths.append(serve_cache(dev, smi, index, ds, rate, wall128))
+    counts, fleet, cfg = serve_fleet(dev, smi, index, t_unit, q, want_s, want_i, rate, wall128)
+    paths.append(counts)
+    paths.append(serve_frontend(dev, smi, fleet, cfg, index, t_unit, q, want_s, want_i, rate))
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1865,16 +2362,22 @@ def main() -> int:
     q_all = make_queries(ds, nq=sum(sizes), skew=0.3, seed=1)
     t_data = time.perf_counter() - t0
     cfg = HarmonyConfig(dim=128, nlist=nlist, nprobe=16, topk=10)
+    mb0 = device_mb()
     t0 = time.perf_counter()
     index = build_ivf(ds.x, cfg)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    index_card_mb = device_mb() - mb0
+    rows_mb = index.x.numel() * 4 / 2 ** 20
+    # the plane keeps its rows on the host: before any executor the card
+    # holds under 5 % of them
+    assert index.x.device.type == "cpu" and index_card_mb < 0.05 * rows_mb, index_card_mb
     t0 = time.perf_counter()
     oracle = search_oracle(index, q_all)
     true_idx, _ = brute_force_topk(ds.x, q_all, 10)
     log(phase="index", nb=nb, dim=128, nlist=nlist, nprobe=16, topk=10,
         data_s=t_data, build_s=t_build, oracle_and_truth_s=time.perf_counter() - t0,
-        resident_mb=index.x.numel() * 4 / 2 ** 20,
+        rows_mb=rows_mb, rows_pinned=index.x.is_pinned(), index_card_mb=index_card_mb,
         oracle_recall_at_10=recall_at_k(oracle.ids, true_idx))
 
     def check(res, lo, hi):
@@ -1981,8 +2484,8 @@ def main() -> int:
         each rule settled."""
         ok = ids >= 0
         assert ok.all(), "int8: a row came back short of k"
-        rows = torch.as_tensor(packed_rows(ids)).to(dev)
-        x64 = index.x[rows].double()
+        rows = torch.as_tensor(packed_rows(ids))
+        x64 = index.x[rows].to(dev).double()
         q64 = torch.as_tensor(q_all).to(dev).double()[:, None, :]
         exact = ((x64 - q64) ** 2).sum(2).cpu().numpy()
         np.testing.assert_allclose(scores, exact, rtol=1e-3, atol=1e-3)
@@ -2102,6 +2605,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths.append(serve_bf16(dev, smi, index, q128, fp32_mb[(1, 1)]))
     paths.extend(serve_filtered_and_tiered(dev, smi, index, ds, q_all))
+    paths.extend(serve_plane(dev, smi, index, ds))      # 13-16. the serving plane
+    serve_launch(smi)                                   # 17. the launcher
     for counts in paths:
         for k in served:
             served[k] += counts[k]

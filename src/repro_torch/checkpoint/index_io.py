@@ -47,8 +47,8 @@ def save_segmented_index(
 ) -> Path:
     """Write ``data`` as checkpoint step ``step`` (default: its current
     generation). Point-in-time consistent: the state is read under the
-    data-plane lock, so a concurrent writer cannot tear it. Each sealed
-    segment's rows are copied from its device to the host once."""
+    data-plane lock, so a concurrent writer cannot tear it. The sealed
+    segments' rows are written from their host copy."""
     with data._mu:
         step = data.generation if step is None else step
         meta = {
@@ -84,7 +84,7 @@ def save_segmented_index(
         for i, seg in enumerate(data.segments):
             leaf = {
                 "centers": seg.index.centers,
-                "x": seg.index.x.detach().cpu().numpy(),
+                "x": seg.index.x.numpy(),
                 "ids": seg.index.ids,
                 "cluster_of": seg.index.cluster_of,
                 "offsets": seg.index.offsets,
@@ -125,8 +125,8 @@ def load_segmented_index(
     ckpt: Checkpointer, step: Optional[int] = None, device: DeviceLike = None,
 ) -> SegmentedIndex:
     """Rebuild the :class:`SegmentedIndex` of checkpoint ``step`` (default:
-    the newest readable one) with its sealed rows on ``device`` (CUDA by
-    default). Searches over it equal the saved plane's."""
+    the newest readable one), served on ``device`` (CUDA by default; the
+    rows stay on the host). Searches over it equal the saved plane's."""
     device = resolve_device(device)
     _, arrays = ckpt.load_arrays(step)
     meta = _meta_parse(arrays["meta"])

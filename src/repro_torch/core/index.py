@@ -1,20 +1,23 @@
 """IVF index build, the V × B sharded layout, per-row metadata and the
 mutable segmented data plane.
 
-The index's corpus rows live on the device as a tensor. The bookkeeping
-stays host-side numpy, exactly as in the reference: centers, ids, the
-cluster of each packed row, cluster offsets, cluster slices and the
-packed-row permutation. The V × B layout that ``preassign`` makes is
-host-side too, as in the reference: the executor packs it and uploads
-one copy. Probe selection (``assign_queries``) is the reference's
-host-side numpy computation. The int8 tier's codes and grids
-(``Int8Quant``, ``quantize_vectors``) are host numpy too, made from one
-host copy of the rows.
+The index's fp32 corpus rows stay on the host, as in the reference: a
+CPU tensor, pinned when the index's device is a CUDA card, so the
+readers that score on the card (the int8 re-rank, the τ prewarm, the
+oracle) upload only the rows they gather. The k-means runs on the
+device and its upload is dropped after the fit. The bookkeeping is
+host-side numpy, exactly as in the reference: centers, ids, the cluster
+of each packed row, cluster offsets, cluster slices and the packed-row
+permutation. The V × B layout that ``preassign`` makes is host-side too:
+the executor packs it and uploads the card's one copy of the rows.
+Probe selection (``assign_queries``) is the reference's host-side numpy
+computation. The int8 tier's codes and grids (``Int8Quant``,
+``quantize_vectors``) are host numpy too, made from the host rows.
 
 Mutability is segment-based, as in the reference: a
 :class:`SegmentedIndex` is an ordered set of immutable sealed
-:class:`Segment` s (each a packed IVF index whose rows live on the
-index's device), one append-only delta buffer of fresh vectors (host
+:class:`Segment` s (each a packed IVF index served on the plane's
+device, its rows on the host), one append-only delta buffer of fresh vectors (host
 numpy, so a snapshot of it stays point-in-time), and per-segment
 dead-row bitmaps (host numpy tombstones). Compaction seals the delta
 into a new segment or merges everything into one.
@@ -43,13 +46,22 @@ class IVFIndex:
 
     cfg: HarmonyConfig
     centers: np.ndarray          # [nlist, D] float32 (host: probe selection)
-    x: torch.Tensor              # [NB, D] float32 on the device, cluster-contiguous
+    x: torch.Tensor              # [NB, D] float32 on the host, cluster-contiguous
     ids: np.ndarray              # [NB] int64 original vector ids of packed rows
     cluster_of: np.ndarray       # [NB] int32 cluster id per packed row (non-decreasing)
     offsets: np.ndarray          # [nlist + 1] int64 row offsets per cluster
     build_times: Dict[str, float]
     # per-row metadata (packed order), None when the corpus carries none
     meta: Optional["MetadataStore"] = None
+    # the plane's device: where the executors, the oracle and the re-rank
+    # score (None: the device ``x`` was given on)
+    device: Optional[torch.device] = None
+
+    def __post_init__(self):
+        if self.device is None:
+            self.device = self.x.device
+        self.device = torch.device(self.device)
+        self.x = host_rows(self.x, self.device)
 
     @property
     def nb(self) -> int:
@@ -64,10 +76,6 @@ class IVFIndex:
         return int(self.centers.shape[0])
 
     @property
-    def device(self) -> torch.device:
-        return self.x.device
-
-    @property
     def sizes(self) -> np.ndarray:
         return self.offsets[1:] - self.offsets[:-1]
 
@@ -76,7 +84,8 @@ class IVFIndex:
 
     @property
     def xnorm2(self) -> torch.Tensor:
-        """Full-corpus squared norms ‖x‖² [NB] on the device, cached."""
+        """Full-corpus squared norms ‖x‖² [NB] on the host beside ``x``,
+        cached."""
         cached = self.__dict__.get("_xnorm2")
         if cached is None:
             cached = (self.x * self.x).sum(1)
@@ -91,7 +100,7 @@ class IVFIndex:
         cache = self.__dict__.setdefault("_int8_quants", {})
         q = cache.get(d_blocks)
         if q is None:
-            q = quantize_vectors(self.x.cpu().numpy(), d_blocks)
+            q = quantize_vectors(self.x.numpy(), d_blocks)
             cache[d_blocks] = q
         return q
 
@@ -102,14 +111,27 @@ class IVFIndex:
         cache[quant.d_blocks] = quant
 
 
-def _pack(cfg: HarmonyConfig, centers: np.ndarray, xt: torch.Tensor,
+def host_rows(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` as a contiguous CPU tensor, pinned when ``device`` is a CUDA
+    card (so the gathers that feed it upload asynchronously); a CPU
+    tensor already in that state is returned as it is."""
+    pin = device.type == "cuda"
+    if x.device.type == "cpu" and x.is_contiguous() and (not pin or x.is_pinned()):
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+    out.copy_(x)
+    return out
+
+
+def _pack(cfg: HarmonyConfig, centers: np.ndarray, x: np.ndarray,
           assign: np.ndarray, ext_ids: Optional[np.ndarray],
-          build_times: Dict[str, float], meta=None) -> IVFIndex:
-    """Add stage: cluster-sort the rows (stable) and compute offsets; the
-    metadata (input row order) is permuted with the rows."""
+          build_times: Dict[str, float], device: torch.device,
+          meta=None) -> IVFIndex:
+    """Add stage: cluster-sort the host rows (stable) and compute offsets;
+    the metadata (input row order) is permuted with the rows."""
     t0 = time.perf_counter()
     order = np.argsort(assign, kind="stable")
-    x_sorted = xt[torch.as_tensor(order, device=xt.device)].contiguous()
+    x_sorted = host_rows(torch.as_tensor(x[order]), device)
     counts = np.bincount(assign, minlength=cfg.nlist)
     offsets = np.zeros((cfg.nlist + 1,), np.int64)
     np.cumsum(counts, out=offsets[1:])
@@ -133,6 +155,7 @@ def _pack(cfg: HarmonyConfig, centers: np.ndarray, xt: torch.Tensor,
         offsets=offsets,
         build_times=build_times,
         meta=store,
+        device=device,
     )
 
 
@@ -141,17 +164,20 @@ def build_ivf(
     meta=None, centers: Optional[np.ndarray] = None,
     device: DeviceLike = None,
 ) -> IVFIndex:
-    """Train + Add stages on ``device`` (CUDA by default).
+    """Train + Add stages for ``device`` (CUDA by default).
 
-    With ``centers`` given, training is skipped and every row goes to its
-    nearest center (argmin, lowest center on ties). ``ext_ids`` names
-    each input row with a stable external id (default: row position).
-    ``meta`` attaches per-row metadata (any form
-    :func:`meta_rows_from_batch` accepts, or a :class:`MetadataStore`, in
-    input row order); it is permuted by the same cluster sort as the rows.
+    The k-means (or, with ``centers`` given, the nearest-center
+    assignment: argmin, lowest center on ties) runs on ``device`` over an
+    upload of the rows that is dropped after the fit; the index keeps the
+    rows on the host. ``ext_ids`` names each input row with a stable
+    external id (default: row position). ``meta`` attaches per-row
+    metadata (any form :func:`meta_rows_from_batch` accepts, or a
+    :class:`MetadataStore`, in input row order); it is permuted by the
+    same cluster sort as the rows.
     """
     dev = resolve_device(device)
-    xt = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    x = np.ascontiguousarray(x, np.float32)
+    xt = torch.as_tensor(x).to(dev)
     t0 = time.perf_counter()
     if centers is None:
         ct, at = kmeans_fit(xt, cfg.nlist, iters=cfg.kmeans_iters,
@@ -161,8 +187,9 @@ def build_ivf(
         centers = np.asarray(centers, np.float32)
         at, _ = assign_nearest(xt, torch.as_tensor(centers).to(dev))
     assign = at.cpu().numpy()
-    return _pack(cfg, centers, xt, assign, ext_ids,
-                 {"train": time.perf_counter() - t0}, meta=meta)
+    del xt, at
+    return _pack(cfg, centers, x, assign, ext_ids,
+                 {"train": time.perf_counter() - t0}, dev, meta=meta)
 
 
 def ivf_from_arrays(
@@ -174,8 +201,9 @@ def ivf_from_arrays(
     ``arrays`` holds ``centers``, ``x``, ``ids``, ``cluster_of`` and
     ``offsets`` (numpy, packed order, e.g. from the JAX package's
     ``IVFIndex``) and optionally ``meta`` (see :func:`metadata_from`);
-    ``cfg`` is a ``HarmonyConfig`` or its field dict. The rows go to
-    ``device``; the bookkeeping is copied as is.
+    ``cfg`` is a ``HarmonyConfig`` or its field dict. The index is served
+    on ``device``; the rows stay on the host and the bookkeeping is
+    copied as is.
     """
     if not isinstance(cfg, HarmonyConfig):
         names = {f.name for f in dataclasses.fields(HarmonyConfig)}
@@ -184,12 +212,13 @@ def ivf_from_arrays(
     return IVFIndex(
         cfg=cfg,
         centers=np.array(arrays["centers"], np.float32),
-        x=torch.as_tensor(np.array(arrays["x"], np.float32)).to(dev),
+        x=torch.as_tensor(np.array(arrays["x"], np.float32)),
         ids=np.array(arrays["ids"], np.int64),
         cluster_of=np.array(arrays["cluster_of"], np.int32),
         offsets=np.array(arrays["offsets"], np.int64),
         build_times={},
         meta=metadata_from(arrays.get("meta")),
+        device=dev,
     )
 
 
@@ -419,7 +448,7 @@ def preassign(index: IVFIndex, plan: PartitionPlan, pad_to: int = 64) -> Sharded
     cap = max(1, max(fill))
     cap = -(-cap // pad_to) * pad_to  # round up for tile alignment
 
-    x_host = index.x.cpu()
+    x_host = index.x
     x_shard = torch.zeros((V, cap, D), dtype=torch.float32)
     ids_shard = np.full((V, cap), -1, np.int64)
     cluster_shard = np.full((V, cap), -1, np.int32)
@@ -628,9 +657,8 @@ def segment_device_bytes(seg: "Segment", precision: str = "fp32",
     codes, or 4 bytes a value), the per-dimension-block norms and the
     packed cluster and row id columns. The currency of the placement
     budget: a ``device``-tier segment costs this much, a ``host``-tier one
-    nothing. (The port also keeps ``IVFIndex.x`` on the card for every
-    tier, which this count leaves out, as the reference's leaves out its
-    host copy.)"""
+    nothing. The fp32 corpus ``IVFIndex.x`` is host memory for every
+    tier, in the port as in the reference."""
     idx = seg.index
     d = int(idx.x.shape[1])
     per_row = (d if precision == "int8" else 4 * d) + 4 * d_blocks + 8
@@ -675,8 +703,9 @@ class SegmentedIndex:
     and delta state, taken under the lock) and search lock-free on a
     point-in-time view. Delta rows are append-only host numpy (an upsert
     of an existing id appends a new row and kills the old one), so a
-    reader never observes a torn vector. Sealed rows live on ``device``,
-    the device of the segments' indexes.
+    reader never observes a torn vector. The segments are served on
+    ``device``, the device of the segments' indexes; their fp32 rows stay
+    on the host.
 
     >>> import numpy as np
     >>> from repro_torch.config import HarmonyConfig
@@ -768,8 +797,9 @@ class SegmentedIndex:
         ``dead_rows`` (seg_id -> bool [nb]) and ``dead_version``; the
         delta's ``delta_ids``, ``delta_x``, ``delta_live`` and
         ``delta_meta`` (per-row dicts or None); ``generation``,
-        ``next_seg_id`` and optionally ``op_count``. The sealed rows go
-        to ``device``; the location maps are derived from the live rows.
+        ``next_seg_id`` and optionally ``op_count``. The segments are
+        served on ``device`` (their rows stay on the host); the location
+        maps are derived from the live rows.
         """
         if not isinstance(cfg, HarmonyConfig):
             names = {f.name for f in dataclasses.fields(HarmonyConfig)}
@@ -854,12 +884,10 @@ class SegmentedIndex:
         return rep["host_bytes"] + rep["device_bytes"]
 
     def _segment_host_bytes_locked(self, seg: Segment) -> int:
-        """Bytes of one sealed segment that the reference keeps on the
-        host: the fp32 corpus and build arrays (the re-rank, compaction and
-        checkpoint source), metadata columns, lazily built BM25 postings
-        and cached int8 codes. In the port the corpus rows ``IVFIndex.x``
-        live on the index's device; they are counted here all the same, so
-        the report equals the reference's."""
+        """Bytes of one sealed segment kept on the host, in the port as in
+        the reference: the fp32 corpus and build arrays (the re-rank,
+        compaction and checkpoint source), metadata columns, lazily built
+        BM25 postings and cached int8 codes."""
         idx = seg.index
         out = sum(a.nbytes for a in (idx.centers, idx.ids, idx.offsets,
                                      idx.cluster_of))
@@ -1087,9 +1115,7 @@ class SegmentedIndex:
                 continue
             alive = ~self._dead_rows[s.seg_id]
             parts_i.append(s.index.ids[alive])
-            parts_x.append(
-                s.index.x[torch.as_tensor(alive, device=s.index.device)]
-                .cpu().numpy())
+            parts_x.append(s.index.x.numpy()[alive])
             if s.index.meta is not None:
                 store = s.index.meta.select(np.nonzero(alive)[0])
                 meta_rows.extend(store.row(r) for r in range(store.n))
@@ -1143,7 +1169,8 @@ class SegmentedIndex:
 
     def seal(self, plan: CompactionPlan) -> List[Segment]:
         """Heavy step (k-means + pack), run outside the lock: seal the
-        plan's rows into a new segment on the plane's device. The port's
+        plan's rows into a new segment served on the plane's device (the
+        k-means runs there; the rows stay on the host). The port's
         k-means is seeded from numpy, so its centers differ from the
         reference's for the same rows."""
         if plan.ids.size == 0:

@@ -99,9 +99,9 @@ def prewarm_tau(
     packed-row tombstones) leaves dead rows out of the sample; a repeated
     probe is sampled once (the reference samples it again).
 
-    The sample table is host bookkeeping; the rows are gathered and
-    scored on the index's device, in the difference form Σ(x−q)² as in
-    the reference. Returns tau0 [NQ] float32 (+inf where the sample was
+    The sample table is host bookkeeping; the rows are gathered on the
+    host, uploaded and scored on the index's device, in the difference
+    form Σ(x−q)² as in the reference. Returns tau0 [NQ] float32 (+inf where the sample was
     smaller than K). ``rows_dtype`` (bf16) scores the sampled rows as a
     ring over rows stored in that type sees them: rounded, then widened,
     so τ0 bounds the k-th distance in that metric.
@@ -133,7 +133,7 @@ def prewarm_tau(
     if dead_rows is not None:
         msk &= ~dead_rows[mat]
     dev = index.device
-    cand = index.x[torch.as_tensor(mat, device=dev)]          # [NQ, W, D]
+    cand = index.x[torch.as_tensor(mat)].to(dev, non_blocking=True)  # [NQ, W, D]
     if rows_dtype is not None:
         cand = cand.to(rows_dtype).float()
     qt = torch.as_tensor(np.asarray(q, np.float32)).to(dev)

@@ -7,7 +7,8 @@ on the index), merges with the tombstones into one excluded mask
 (:func:`filtered_assign_queries`). Every engine then masks excluded rows
 as it masks dead ones.
 
-On the index's device, as plain PyTorch:
+On the index's device, as plain PyTorch (the host rows they read are
+uploaded per call):
 
 * :func:`search_oracle`, the exact IVF oracle (single-node Faiss-like
   scan), the ground truth the ring search is held against (``flt=`` the
@@ -50,6 +51,7 @@ from repro_torch.core.types import Filter, PartitionPlan, SearchResult
 from repro_torch.kernels import ops, topk_update
 
 FILTER_CACHE_ENTRIES = 64        # allowed bitmaps kept per segment index
+ORACLE_ROWS = 1 << 18            # host rows the oracle uploads at a time
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +153,9 @@ def search_oracle(
     flt: Optional[Filter] = None,
 ) -> SearchResult:
     """Exact top-k over probed clusters (masked full scan, ``chunk``
-    queries at a time) on the index's device.
+    queries at a time) on the index's device. The host rows are uploaded
+    per query chunk in blocks of ``ORACLE_ROWS`` and freed with the call:
+    the oracle keeps no copy of the corpus on the card.
 
     ``dead_rows`` (bool [NB], packed-row tombstones) leaves rows out of
     the candidate set, and ``flt`` the rows its predicate disallows (the
@@ -172,7 +176,7 @@ def search_oracle(
     cluster_of = torch.as_tensor(index.cluster_of.astype(np.int64), device=dev)
     live = (None if dead_rows is None
             else ~torch.as_tensor(np.asarray(dead_rows, bool), device=dev))
-    xn2 = index.xnorm2 if cfg.metric == "l2" else None
+    xn2 = index.xnorm2.to(dev) if cfg.metric == "l2" else None
     qt_all = torch.as_tensor(q).to(dev)
     kk = min(k, index.nb)
     for lo in range(0, nq, chunk):
@@ -183,10 +187,16 @@ def search_oracle(
         if live is not None:
             mask &= live[None, :]
         qt = qt_all[lo:hi]
-        if cfg.metric == "l2":
-            d = (qt * qt).sum(1)[:, None] - 2.0 * (qt @ index.x.T) + xn2[None, :]
-        else:
-            d = -(qt @ index.x.T)
+        d = torch.empty((hi - lo, index.nb), dtype=torch.float32, device=dev)
+        for r0 in range(0, index.nb, ORACLE_ROWS):
+            r1 = min(index.nb, r0 + ORACLE_ROWS)
+            xb = index.x[r0:r1].to(dev, non_blocking=True)
+            if cfg.metric == "l2":
+                d[:, r0:r1] = ((qt * qt).sum(1)[:, None] - 2.0 * (qt @ xb.T)
+                               + xn2[None, r0:r1])
+            else:
+                d[:, r0:r1] = -(qt @ xb.T)
+            del xb
         d = torch.where(mask, d, torch.inf)
         s, pos = torch.sort(d, dim=1, stable=True)
         s = s[:, :kk].cpu().numpy()
@@ -198,15 +208,20 @@ def search_oracle(
     return SearchResult(ids=out_i, scores=out_s, stats={"wall_s": dt})
 
 
-def rerank_exact(index: IVFIndex, qt: torch.Tensor, rows: torch.Tensor,
+def rerank_exact(index: IVFIndex, qt: torch.Tensor, rows: np.ndarray,
                  valid: torch.Tensor, k: int):
-    """Exact fp32 L2 distances of the packed ``rows`` [m, K'] to the
-    queries ``qt`` [m, D], +inf where not ``valid``, and the ``k`` best
-    per query in ascending order (a stable sort, so ties keep their
-    stage-1 rank). Returns (scores [m, k], positions in K' [m, k])."""
-    xg = index.x[rows]                                       # [m, K', D]
+    """Exact fp32 L2 distances of the packed ``rows`` [m, K'] (host int64)
+    to the queries ``qt`` [m, D], +inf where not ``valid``, and the ``k``
+    best per query in ascending order (a stable sort, so ties keep their
+    stage-1 rank). The rows and their norms are gathered on the host and
+    only they are uploaded to ``qt``'s device. Returns (scores [m, k],
+    positions in K' [m, k])."""
+    dev = qt.device
+    r = torch.as_tensor(np.asarray(rows, np.int64))
+    xg = index.x[r].to(dev, non_blocking=True)               # [m, K', D]
+    xn2 = index.xnorm2[r].to(dev, non_blocking=True)
     d = ((qt * qt).sum(1)[:, None]
-         - 2.0 * torch.einsum("md,mkd->mk", qt, xg) + index.xnorm2[rows])
+         - 2.0 * torch.einsum("md,mkd->mk", qt, xg) + xn2)
     d = torch.where(valid, d, torch.inf)
     sc, sel = torch.sort(d, dim=1, stable=True)
     return sc[:, :k], sel[:, :k]
@@ -272,7 +287,8 @@ def two_stage_search(
         valid = torch.isfinite(s8[:, :kp])
         survivors += int(valid.sum())
         # stage 2: exact fp32 re-rank of the survivors
-        sc, sel = rerank_exact(index, qt_all[lo:hi], part, valid, nk)
+        sc, sel = rerank_exact(index, qt_all[lo:hi], part.cpu().numpy(),
+                               valid, nk)
         rows = torch.gather(part, 1, sel).cpu().numpy()
         out_s[lo:hi, :nk] = sc.cpu().numpy()
         out_i[lo:hi, :nk] = index.ids[rows]
@@ -401,7 +417,7 @@ def harmony_search(
 
     The reference's numpy engine that models a cluster, run on the host
     layout of :func:`preassign` (CPU tensors, read as numpy); only the τ
-    prewarm gathers its sample on the index's device. It launches no
+    prewarm scores its sample on the index's device. It launches no
     kernel. The server reaches it only on ``backend="host"``, which the
     caller asks for.
 

@@ -1,6 +1,5 @@
 """Runtime: the serving cluster's live node set and the survivor
-re-plan, and deterministic fault injection. Straggler hedging comes with
-a later slice."""
+re-plan, deterministic fault injection, and straggler hedging."""
 
 from repro_torch.runtime.elastic import ClusterState, replan_on_failure
 from repro_torch.runtime.faults import (
@@ -12,10 +11,13 @@ from repro_torch.runtime.faults import (
     fault_scope,
     install_fault_plan,
 )
+from repro_torch.runtime.straggler import HedgeStats, HedgingExecutor
 
 __all__ = [
     "ClusterState",
     "replan_on_failure",
+    "HedgingExecutor",
+    "HedgeStats",
     "FaultPlan",
     "FaultSpec",
     "InjectedFault",

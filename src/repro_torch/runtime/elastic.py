@@ -7,8 +7,8 @@ resume with identical results. ``replan_on_failure`` implements exactly
 that; tests assert search results are unchanged (minus capacity) after
 killing nodes.
 
-Straggler hedging and fault injection come with later slices of the
-port.
+Straggler hedging is ``repro_torch.runtime.straggler``, fault injection
+``repro_torch.runtime.faults``.
 """
 
 from __future__ import annotations

@@ -64,9 +64,7 @@ import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
-import torch
-
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import DeviceLike, bind_device, resolve_device
 from repro_torch.core import SegmentedIndex
 from repro_torch.runtime.faults import fault_point
 from repro_torch.serve.placement import (
@@ -318,10 +316,9 @@ class Compactor:
         return self
 
     def _loop(self) -> None:
-        if self.device.type == "cuda":
-            # the seal's k-means and the executors' warm-up run here, on
-            # the plane's card, whatever device the starting thread had
-            torch.cuda.set_device(self.device)
+        # the seal's k-means and the executors' warm-up run here, on the
+        # plane's card, whatever device the starting thread had
+        bind_device(self.device)
         while not self._stop.is_set():
             try:
                 self.maybe_compact()

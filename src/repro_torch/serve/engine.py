@@ -32,8 +32,9 @@ and :meth:`HarmonyServer.prefetch_batch` stages the next batch's upload.
 Load-aware re-planning (a sliding window of recent probes) and elastic
 node failure / join re-plan every segment; results do not change.
 
-Not ported yet: the scheduled ``serve()`` loop and the placement policy
-(``serve/placement.py``) that chooses the tiers.
+:meth:`HarmonyServer.serve` drives a stream of query batches through
+the admission-controlled :class:`repro_torch.serve.scheduler.ServingScheduler`,
+with :meth:`HarmonyServer.search_batch` as its execution primitive.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -70,6 +71,7 @@ from repro_torch.core.search import (
 from repro_torch.core.types import DataPlane, Filter, SearchRequest, SearchResult
 from repro_torch.runtime.elastic import ClusterState
 from repro_torch.serve.executor import ExecutorConfig, SpmdExecutor
+from repro_torch.serve.scheduler import SchedulerConfig, ServingScheduler
 
 
 @dataclass
@@ -768,3 +770,82 @@ class HarmonyServer(DataPlane):
         if self.replan_every and self.stats.batches % self.replan_every == 0:
             self.refresh_plan()
         return res
+
+    def serve(self, request_stream, k: Optional[int] = None, sched=None,
+              arrivals=None) -> List[SearchResult]:
+        """Admission-controlled scheduled serving of an iterable of query
+        batches. Incoming batches are flattened into per-query requests and
+        pushed through :class:`repro_torch.serve.scheduler.ServingScheduler`,
+        which re-forms batches adaptively (size/deadline triggers) and
+        keeps :meth:`search_batch` as the inner execution primitive (the
+        server's backend, or ``sched.backend`` when set). Returns one
+        ``SearchResult`` per input batch, aligned with the stream; a
+        request shed by a bounded queue keeps ids -1 and scores +inf.
+
+        ``arrivals`` optionally supplies per-batch arrival timestamps for
+        replayed traces (aligned with ``request_stream``; each entry is a
+        scalar for the whole batch or a per-row sequence, non-decreasing
+        across the stream). Without it every request arrives at t=0 and
+        queue-wait/deadline statistics degenerate.
+
+        Stream entries may also be :class:`SearchRequest` objects (vector
+        [D] or [NQ, D]); their filter/hybrid/precision/k ride along with
+        every row of that entry."""
+        sched_cfg = sched or SchedulerConfig()   # unbounded queue by default
+        k = k or self.cfg.topk
+        scheduler = ServingScheduler(self, sched_cfg, k=k)
+        owners: Dict[int, tuple] = {}            # req_id → (batch_idx, row)
+        shapes: List[Tuple[int, int]] = []       # (rows, k) per input batch
+        arr_iter = iter(arrivals) if arrivals is not None else None
+        for bi, qb in enumerate(request_stream):
+            breq = qb if isinstance(qb, SearchRequest) else None
+            qb = np.atleast_2d(
+                np.asarray(breq.vector if breq is not None else qb)
+            )
+            k_b = (breq.k or k) if breq is not None else k
+            shapes.append((qb.shape[0], k_b))
+            if arr_iter is None:
+                t_b = 0.0
+            else:
+                try:
+                    t_b = next(arr_iter)
+                except StopIteration:
+                    raise ValueError(
+                        f"arrivals exhausted at batch {bi}: it must yield "
+                        "one timestamp (or per-row sequence) per "
+                        "request_stream batch"
+                    ) from None
+            for r in range(qb.shape[0]):
+                t_r = float(t_b) if np.ndim(t_b) == 0 else float(t_b[r])
+                row_req = (
+                    SearchRequest(vector=qb[r], k=breq.k, filter=breq.filter,
+                                  hybrid_text=breq.hybrid_text,
+                                  precision=breq.precision,
+                                  deadline=breq.deadline)
+                    if breq is not None else qb[r]
+                )
+                rid = scheduler.submit(row_req, arrival_s=t_r, _warn=False)
+                if rid >= 0:
+                    owners[rid] = (bi, r)
+        done = scheduler.flush()
+
+        out = [
+            SearchResult(
+                ids=np.full((n, k_b), -1, np.int64),
+                scores=np.full((n, k_b), np.inf, np.float32),
+                stats={"scheduled": True, "wall_s": 0.0, "queue_wait_ms": []},
+            )
+            for n, k_b in shapes
+        ]
+        for rr in done:
+            bi, r = owners.get(rr.req_id, (None, None))
+            if bi is None:
+                continue
+            out[bi].ids[r] = rr.ids
+            out[bi].scores[r] = rr.scores
+            st = out[bi].stats
+            # per-input-batch wall = first arrival → last completion of its
+            # requests on the scheduler's virtual clock
+            st["wall_s"] = max(st["wall_s"], rr.done_s - rr.arrival_s)
+            st["queue_wait_ms"].append(rr.queue_wait_s * 1e3)
+        return out

@@ -8,8 +8,8 @@ precisions:
   maps them to ids after the batch) are packed once on the host,
   block-major for the virtual V × B mesh
   (:func:`repro_torch.core.pipeline.resident_arrays`), and
-  uploaded as the device's one copy of the sharded rows, beside the
-  index's own ``x``. A batch moves only its queries, probe table, τ seeds
+  uploaded as the device's one copy of the sharded rows (the index's
+  own ``x`` stays on the host). A batch moves only its queries, probe table, τ seeds
   and an int32 row-index table to the device.
 * **Host tier** (``tier="host"``) — for a demoted segment nothing stays on
   the card: the packed arrays live in pinned host memory, and per batch
@@ -33,7 +33,8 @@ precisions:
   codes of a per-dimension-block grid (4× smaller than fp32 rows) with
   pre-scaled norms and each block's s²; the ring keeps the quantized
   top ``K' = k·rerank_factor`` and :meth:`SpmdExecutor._rerank` rescores
-  those survivors exactly in fp32 on the card, against ``index.x``.
+  those survivors exactly in fp32 on the card: their rows of the host
+  ``index.x`` are gathered and uploaded per batch.
 * **bf16 rows** (``x_dtype="bfloat16"``, fp32 precision) — the resident
   rows are rounded to bf16 (half the bytes) and the distance kernel's bf16
   route widens them to f32; queries, norms and sums stay f32, and the τ
@@ -656,8 +657,8 @@ class SpmdExecutor:
         """Exact fp32 re-rank of the int8 stage-1 survivors.
 
         Stage 1 returns the quantized-metric top ``K'`` packed rows; the
-        card gathers those rows of ``index.x``, scores them exactly and
-        keeps the top k with a stable sort. Returns (scores [nq, k],
+        host gathers those rows of ``index.x`` and the card scores them
+        exactly and keeps the top k with a stable sort. Returns (scores [nq, k],
         packed rows [nq, k]); invalid survivors stay +inf / -1, and with
         ``K' < k`` (tiny corpus) the result is padded to k."""
         kp = s1_rows.shape[1]
@@ -666,8 +667,7 @@ class SpmdExecutor:
         dev = self.device
         nk = min(k, kp)
         sc, sel = rerank_exact(self.index, torch.as_tensor(queries).to(dev),
-                               torch.as_tensor(rows).to(dev),
-                               torch.as_tensor(valid).to(dev), nk)
+                               rows, torch.as_tensor(valid).to(dev), nk)
         sc = sc.cpu().numpy()
         out_rows = np.take_along_axis(s1_rows, sel.cpu().numpy(), axis=1)
         out_rows[~np.isfinite(sc)] = -1

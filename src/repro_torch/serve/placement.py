@@ -24,9 +24,10 @@ batch picks up the new one. Results are tier-invariant by construction
 (the host tier streams the same packed rows through the same kernels).
 
 The budget is counted as the reference counts it
-(:func:`repro_torch.core.index.segment_device_bytes`); the card also
-holds each segment's ``IVFIndex.x`` whatever its tier, which the count
-leaves out.
+(:func:`repro_torch.core.index.segment_device_bytes`), and it is what
+the card holds: each segment's fp32 ``IVFIndex.x`` is host memory
+whatever its tier, so a ``host``-tier segment leaves nothing of its rows
+on the card.
 
 >>> import numpy as np
 >>> from repro_torch.config import HarmonyConfig

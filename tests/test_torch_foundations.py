@@ -25,6 +25,10 @@ from repro_torch._device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
+# the serving plane's modules, which both scans must reach
+SERVING_PLANE = {f"repro_torch.serve.{m}" for m in
+                 ("clock", "scheduler", "cache", "fleet", "frontend")} | {
+    "repro_torch.runtime.straggler", "repro_torch.launch.serve"}
 
 
 def _submodules():
@@ -53,20 +57,23 @@ def test_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     assert "IMPORTED" in proc.stdout
     assert len(mods) >= 19, mods
-    # the served entry point's modules are among them
+    # the served entry point's modules and the serving plane's are among them
     assert {"repro_torch.runtime", "repro_torch.runtime.elastic",
             "repro_torch.serve.engine", "repro_torch.core.planner",
             "repro_torch.core.cost_model"} <= set(mods)
+    assert SERVING_PLANE <= set(mods), SERVING_PLANE - set(mods)
 
 
 def test_source_scan_no_jax_or_reference_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|repro)(\.|\s|$)",
                      re.MULTILINE)
-    offenders = []
+    offenders, scanned = [], set()
     for path in PKG.rglob("*.py"):
+        scanned.add(".".join(path.relative_to(PKG.parent).with_suffix("").parts))
         for m in pat.finditer(path.read_text()):
             offenders.append((str(path.relative_to(ROOT)), m.group(0).strip()))
     assert not offenders, offenders
+    assert SERVING_PLANE <= scanned, SERVING_PLANE - scanned
 
 
 def test_device_entry_points_raise_without_cuda(monkeypatch):

@@ -4,8 +4,11 @@ hotness cases through ``repro_torch`` (the scheduler's lookahead comes
 with the serving plane), and the reference held against the port: equal
 plans on the same hotness and budget, and equal memory reports."""
 
+import dataclasses
+
 import numpy as np
 import pytest
+import torch
 
 from repro.core import SegmentedIndex as RSegmented
 from repro.serve import PlacementConfig as RPlacementConfig
@@ -123,7 +126,9 @@ def test_memory_report_counts_metadata_and_bm25():
 @pytest.mark.parametrize("precision,d_blocks", [("fp32", 1), ("int8", 2)])
 def test_plans_and_reports_equal_the_reference(precision, d_blocks):
     """The same plane, hotness and budget give the reference's costs,
-    plans and memory reports, at every budget from nothing to all."""
+    plans and memory reports, at every budget from nothing to all. The
+    fp32 rows are host bytes in both packages: the port keeps
+    ``IVFIndex.x`` on the host for every tier, as the reference does."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((600, 16)).astype(np.float32)
     from repro.config import HarmonyConfig as RCfg
@@ -237,3 +242,115 @@ def test_engine_feeds_hotness():
     assert all(v == 0.0 for v in data.segment_hotness().values())
     srv.search_batch(_queries(x))
     assert any(v > 0.0 for v in data.segment_hotness().values())
+
+
+# ------------------------------------------------- the rows live on the host
+def test_index_rows_stay_on_the_host_of_a_non_cpu_plane(tmp_path):
+    """On a plane whose device is not the CPU (``meta`` stands in for the
+    card) every sealed segment's ``IVFIndex.x`` and its norms are host
+    tensors, through ``ivf_from_arrays``, ``from_arrays`` and a checkpoint
+    restore; the engine accepts the plane."""
+    from repro_torch.core import ivf_from_arrays
+
+    x, data = _plane()
+    arrays = dict(centers=data.segments[0].index.centers,
+                  x=data.segments[0].index.x.numpy(),
+                  ids=data.segments[0].index.ids,
+                  cluster_of=data.segments[0].index.cluster_of,
+                  offsets=data.segments[0].index.offsets)
+    idx = ivf_from_arrays(dataclasses.asdict(CFG), arrays, device="meta")
+    assert idx.device == torch.device("meta") and idx.x.device.type == "cpu"
+    assert idx.xnorm2.device.type == "cpu"
+    ck = Checkpointer(tmp_path / "ckpt")
+    save_segmented_index(ck, data)
+    restored = load_segmented_index(ck, device="meta")
+    plane = SegmentedIndex.from_arrays(dataclasses.asdict(CFG), {
+        "segments": [dict(seg_id=0, **arrays)], "dead_rows": {0: np.zeros(len(x) - 192, bool)},
+        "dead_version": 0, "delta_ids": np.zeros(0, np.int64),
+        "delta_x": np.zeros((0, CFG.dim), np.float32), "delta_live": np.zeros(0, bool),
+        "generation": 0, "next_seg_id": 1}, device="meta")
+    for p in (restored, plane):
+        assert p.device == torch.device("meta")
+        for seg in p.segments:
+            assert seg.index.device == p.device and seg.index.x.device.type == "cpu"
+    srv = HarmonyServer(plane, n_nodes=2, device="meta")
+    assert srv.device == srv.data.device == torch.device("meta")
+
+
+def test_host_rows_give_the_device_gather_results():
+    """``rerank_exact``, ``prewarm_tau`` and ``search_oracle`` gather the
+    host rows and upload only those: their results are the ones a gather
+    of a device copy of the rows gives, bit for bit (the oracle also with
+    the corpus uploaded in several blocks)."""
+    import repro_torch.core.search as t_search
+    from repro_torch.core.index import assign_queries
+    from repro_torch.core.pruning import prewarm_tau
+    from repro_torch.core.search import rerank_exact, search_oracle
+
+    x, data = _plane()
+    idx = data.segments[0].index
+    q = _queries(x)
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, idx.nb, size=(len(q), 9))
+    valid = torch.as_tensor(rng.random((len(q), 9)) > 0.2)
+    qt = torch.as_tensor(q)
+    sc, sel = rerank_exact(idx, qt, rows, valid, 5)
+    xg, r = idx.x.clone(), torch.as_tensor(rows)
+    d = ((qt * qt).sum(1)[:, None] - 2.0 * torch.einsum("md,mkd->mk", qt, xg[r])
+         + (xg * xg).sum(1)[r])
+    want_sc, want_sel = torch.sort(torch.where(valid, d, torch.inf), dim=1, stable=True)
+    assert torch.equal(sc, want_sc[:, :5]) and torch.equal(sel, want_sel[:, :5])
+
+    probes = assign_queries(idx, q)
+    tau = prewarm_tau(idx, q, probes, 5)
+    want = []
+    for i in range(len(q)):
+        rows_i = np.concatenate([np.arange(idx.offsets[c], idx.offsets[c] + min(
+            idx.sizes[c], 4)) for c in dict.fromkeys(probes[i].tolist())])
+        diff = idx.x[torch.as_tensor(rows_i)] - qt[i][None, :]
+        s_i = torch.sort((diff * diff).sum(1)).values
+        want.append(s_i[4].item() if len(s_i) >= 5 else np.inf)
+    np.testing.assert_array_equal(tau, np.float32(want))
+
+    whole = search_oracle(idx, q, k=5)
+    small = t_search.ORACLE_ROWS
+    try:
+        t_search.ORACLE_ROWS = 64                    # 6 blocks of the 384 rows
+        blocked = search_oracle(idx, q, k=5)
+    finally:
+        t_search.ORACLE_ROWS = small
+    np.testing.assert_array_equal(whole.ids, blocked.ids)
+    np.testing.assert_array_equal(whole.scores, blocked.scores)
+
+
+@pytest.mark.cuda
+def test_cuda_demotion_frees_the_report_device_bytes():
+    """On the card, demoting a segment to the host tier lowers
+    ``torch.cuda.memory_allocated`` by at least the bytes the memory report
+    stops counting, and the served plane before any executor holds under
+    5 % of its rows' bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((4000, 32)).astype(np.float32)
+    cfg = HarmonyConfig(dim=32, nlist=32, nprobe=8, topk=5, kmeans_iters=3)
+    # a first build creates the libraries' workspaces, which are not the plane's
+    SegmentedIndex.build(x[:256], cfg.replace(nlist=4), device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    data = SegmentedIndex.build(x, cfg, device="cuda")
+    assert data.segments[0].index.x.device.type == "cpu"
+    assert data.segments[0].index.x.is_pinned()
+    assert torch.cuda.memory_allocated() - base < 0.05 * x.nbytes
+    srv = HarmonyServer(data, n_nodes=2)
+    srv.warmup_executors()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rep0 = data.memory_report()["device_bytes"]
+    srv.prepare_placement({0: "host"})
+    data.set_tiers({0: "host"})
+    srv.adopt()
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated()
+    assert freed >= rep0 - data.memory_report()["device_bytes"] > 0
+
