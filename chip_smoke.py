@@ -120,7 +120,25 @@ resets the launch counts before it and reads them after it.
     row equals the oracle; each phase's counts are set to 0 before it.
 17. ``python -m repro_torch.launch.serve`` at 1M rows in a subprocess
     (``launch``).
-18. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+18. The LM substrate's serving path (``serve_lm``), which runs no
+    hand-written kernel (its launch counts must stay 0). (a) In fp32 with
+    TF32 off, at the published widths and reduced depth, each at
+    rtol = atol = 1e-3 (``lm_fp32``): Qwen1.5-4B at 2 layers, the card's
+    ``forward`` against the CPU's on the same params (2 × 64 tokens) and
+    teacher-forced ``decode_step`` against the card's ``forward`` at every
+    position; Gemma3-27B at 8 layers (one 5 + 1 unit and 2 tail locals,
+    window 1024), decode against ``forward`` over 1088 positions, so the
+    ring buffers wrap; Qwen2-VL-7B (M-RoPE patch positions) and
+    HuBERT-XLarge (frames) at 2 layers, card against CPU. (b) Qwen1.5-4B at
+    its published width and depth in bf16 from the seeded init: 8 prompts
+    of 1024 tokens through ``prefill``, a 1152-position cache filled by
+    teacher-forced decode (its last logits against ``prefill``'s), 64
+    greedy steps with finite logits, 8 more under the profiler. One
+    ``{"lm": ...}`` line: times, tokens/s, bytes, peak memory, the idle
+    share and the bounds (prefill: 2 · N · tokens + attention over the
+    989 TFLOP/s bf16 rate; a decode step: weights + attended KV over
+    3.35 TB/s).
+19. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -2124,9 +2142,9 @@ def serve_fleet(dev, smi, index, t_unit, q, want_s, want_i, rate, wall128):
     (capacities 1.0 and 0.5) on the one card over one shared plane,
     ``routing="p2c"``, hedging at 2x the warm batch wall, the trace at 1.4x
     one server's sustained rate (the fleet's capacity is 1.5x: replica 1
-    takes work only once replica 0 has a backlog), and a ``FaultPlan``
-    failing ``replica.execute`` once on replica 1 (the batch is retried
-    and served). Every row equals the
+    takes work only once replica 0 has a backlog, so it may get none), and
+    a ``FaultPlan`` failing replica 0's first ``replica.execute`` (the
+    batch is retried on replica 1 and served). Every row equals the
     oracle. Returns (counts, the fleet, its scheduler config)."""
     import torch
 
@@ -2153,12 +2171,13 @@ def serve_fleet(dev, smi, index, t_unit, q, want_s, want_i, rate, wall128):
     arrivals = t_unit / (1.4 * rate)
     t0 = time.perf_counter()
     with fault_scope(FaultSpec("replica.execute", at=1, count=1,
-                               where={"replica": 1})) as plan:
+                               where={"replica": 0})) as plan:
         done = sched.run_trace([(float(arrivals[i]), SearchRequest(vector=q[i]))
                                 for i in range(len(q))])
     wall_s = time.perf_counter() - t0
     s = fleet.stats
-    assert plan.fired == 1 and s.replica_failures == 1 and s.retried_batches >= 1
+    assert plan.fired == 1 and s.replica_failures == 1 and s.retried_batches >= 1, (
+        plan.fired, s.replica_failures, s.retried_batches, [r.batches for r in fleet.replicas])
     assert s.failed_batches == 0 and len(done) == s.admitted == len(q)
     checked = check_served(done, want_s, want_i, "serve_fleet")
     hs = fleet._hedge.stats
@@ -2317,6 +2336,276 @@ def serve_plane(dev, smi, index, ds):
     gc.collect()
     torch.cuda.empty_cache()
     return paths
+
+
+# ------------------------------------------------------------------ the LM substrate
+BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 tensor-core rate
+LM_TOL = 1e-3                 # fp32 on the card against the CPU / its own forward
+FILL_MAX_ABS = 0.2            # bf16 fill against prefill: about twice the 0.09375 measured
+FILL_ARGMAX_AGREE = 7 / 8     # bf16 fill against prefill: rows whose argmax agrees
+RING_F64_TOL = 1e-2           # ring decode (fp32) against forward in f64: 10× the 0.00098 measured
+
+
+def _leaves(tree, name=""):
+    """(key, leaf) pairs of a nested dict."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _leaves(v, k)]
+    return [(name, tree)]
+
+
+def lm_close(got, want, what):
+    """(max |err|, max |err| / max |want|) of ``got`` against ``want``,
+    compared in f32 on ``got``'s device and held at LM_TOL."""
+    import torch
+
+    got, want = got.float(), want.float().to(got.device)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all()), what
+    err = float((got - want).abs().max())
+    assert torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL), f"{what}: max |err| {err}"
+    return err, err / float(want.abs().max())
+
+
+def ring_witness(params64, cfg, toks, full, dec):
+    """Where the ring check's error comes from. The fp32 ``forward``
+    logits (``full``) and the teacher-forced decode's (``dec``) are each
+    held against the same model's ``forward`` in f64 (``params64``; norms
+    and softmax stay f32 as the reference computes them, the logits are
+    rounded to f32), over all positions, the n before the ring buffers
+    wrap and the n after (n = S − W). Summation order moves an fp32 path
+    alike before the wrap and after; a fault in the ring's slots or window
+    moves decode only, and only after the wrap. Decode is held at
+    RING_F64_TOL (absolute) over all positions."""
+    import torch
+
+    from repro_torch.models import forward
+
+    W = cfg.sliding_window
+    n = toks.shape[1] - W
+    ref, _ = forward(params64, cfg.replace(dtype="float64", param_dtype="float64"),
+                     {"tokens": toks})
+    spans = {"all": slice(None), "before_wrap": slice(W - n, W), "after_wrap": slice(W, W + n)}
+    out = {"positions_each": n, "max_abs_logit": float(ref.abs().max())}
+    for name, got in (("forward_fp32", full), ("decode_fp32", dec)):
+        for span, sl in spans.items():
+            out[f"{name}_vs_f64_{span}"] = float((got[:, sl] - ref[:, sl]).abs().max())
+    for span, sl in spans.items():
+        out[f"decode_vs_forward_fp32_{span}"] = float((dec[:, sl] - full[:, sl]).abs().max())
+    assert out["decode_fp32_vs_f64_all"] <= RING_F64_TOL, f"ring decode against f64: {out}"
+    del ref
+    return out
+
+
+def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
+    """Phase 18a (``lm_fp32``): full widths at reduced depth, in fp32 with
+    TF32 off. The card's ``forward`` against the port's CPU ``forward`` on the
+    same params (Qwen1.5, Qwen2-VL with M-RoPE patch positions, HuBERT's
+    frames; B = 2, S tokens); teacher-forced ``decode_step`` against the
+    card's own ``forward`` at every position (Qwen1.5 over S; Gemma3 over
+    S_ring > its window, so the local layers' ring buffers wrap, with
+    ``ring_witness`` on its error). Returns ({check: (max |err|, relative)},
+    the witness)."""
+    import torch
+
+    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.models.lm import map_tree
+
+    rng = np.random.default_rng(0)
+    errs = {}
+
+    def card_vs_cpu(cfg, batch, what):
+        params = init_params(cfg, 0, device=dev)
+        cpu = map_tree(params, lambda t: t.cpu())
+        got, _ = forward(params, cfg, map_tree(batch, lambda t: t.to(dev)))
+        want, _ = forward(cpu, cfg, batch)
+        errs[what] = lm_close(got, want, what)
+        return params, got
+
+    def teacher_forced(params, cfg, toks):
+        """``decode_step``'s logits [B, n, V] at every position of ``toks``."""
+        B, n = toks.shape
+        cache = init_cache(cfg, B, n, device=dev)
+        out = torch.empty((B, n, cfg.vocab_size), dtype=torch.float32, device=dev)
+        for t in range(n):
+            out[:, t], cache = decode_step(params, cfg, toks[:, t],
+                                           torch.full((B,), t, device=dev), cache)
+        return out
+
+    toks = torch.from_numpy(rng.integers(0, qwen.vocab_size, size=(2, S)))
+    params, full = card_vs_cpu(qwen, {"tokens": toks}, "qwen_card_vs_cpu")
+    errs["qwen_decode_vs_forward"] = lm_close(teacher_forced(params, qwen, toks.to(dev)),
+                                              full, "qwen decode against forward")
+    del params, full
+
+    params = init_params(gemma, 0, device=dev)
+    toks = torch.from_numpy(rng.integers(0, gemma.vocab_size, size=(1, S_ring))).to(dev)
+    full, _ = forward(params, gemma, {"tokens": toks})
+    dec = teacher_forced(params, gemma, toks)
+    errs["gemma_ring_decode_vs_forward"] = lm_close(dec, full,
+                                                    "gemma ring decode against forward")
+    params = map_tree(params, lambda t: t.double())
+    witness = ring_witness(params, gemma, toks, full, dec)
+    del params, full, dec
+
+    pos = np.broadcast_to(np.arange(S)[None, None], (3, 2, S)).copy()
+    pos[1, :, : S // 4] += 3                       # patch positions on a prefix
+    pos[2, :, : S // 4] += 5
+    card_vs_cpu(vl, {"tokens": torch.from_numpy(rng.integers(0, vl.vocab_size, size=(2, S))),
+                     "positions": torch.from_numpy(pos)}, "qwen2vl_mrope_card_vs_cpu")
+    frames = torch.from_numpy(rng.normal(size=(2, S, hubert.d_model)).astype(np.float32))
+    card_vs_cpu(hubert, {"frames": frames}, "hubert_card_vs_cpu")
+    torch.cuda.empty_cache()
+    return errs, witness
+
+
+def lm_bounds(cfg, params, B, S, attended):
+    """(prefill FLOPs, decode bytes read per step at ``attended`` positions):
+    2 · N · tokens over the weights that multiply (the embedding table is a
+    lookup unless it is the tied head) plus the causal attention's
+    QK^T and PV over the positions each query attends; a decode step reads
+    those weights once, B embedding rows, and the attended keys and values
+    of every layer."""
+    units = [kv for k in ("units", "tail_local") if k in params for kv in _leaves(params[k])]
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    n_mm = sum(t.numel() for k, t in units if k.startswith("w")) + head.numel()
+    units = [t for _, t in units]
+    layers, H, KV, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn_flops = layers * 4 * B * H * hd * S * (S + 1) / 2
+    weight_bytes = sum(t.numel() * t.element_size() for t in units) + (
+        head.numel() * head.element_size())
+    embed_rows = 0 if cfg.tie_embeddings else B * cfg.d_model * params["embed"].element_size()
+    kv_bytes = layers * 2 * B * attended * KV * hd * params["embed"].element_size()
+    return 2 * n_mm * B * S + attn_flops, weight_bytes + embed_rows + kv_bytes
+
+
+def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64):
+    """Phase 18b (``lm``): ``cfg`` served in its own bf16 from the port's
+    seeded init: B prompts of S tokens through ``prefill`` (once to warm,
+    once timed); a cache of ``max_len`` filled by teacher-forced
+    ``decode_step`` over the prompts, whose last logits are held against
+    ``prefill``'s (max |Δ| ≤ FILL_MAX_ABS, argmax agreement ≥
+    FILL_ARGMAX_AGREE); then ``steps`` greedy steps, every logit finite;
+    then 8 more steps under the profiler (idle share). On the card only.
+    Returns the numbers of the ``lm`` line."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S))).to(dev)
+
+    prefill(params, cfg, {"tokens": prompts})           # warm: the library's plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last = prefill(params, cfg, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    cache = init_cache(cfg, B, max_len, device=dev)
+    cache_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
+    t0 = time.perf_counter()
+    for t in range(S):
+        lg, cache = decode_step(params, cfg, prompts[:, t], torch.full((B,), t, device=dev),
+                                cache)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill_vs_prefill = float((lg - last).abs().max())
+    argmax_agree = float((lg.argmax(-1) == last.argmax(-1)).float().mean())
+    assert bool(torch.isfinite(lg).all()) and bool(torch.isfinite(last).all())
+    assert fill_vs_prefill <= FILL_MAX_ABS and argmax_agree >= FILL_ARGMAX_AGREE, (
+        f"fill against prefill: max |Δ| {fill_vs_prefill}, argmax agreement {argmax_agree}")
+
+    tok, finite = lg.argmax(-1), torch.ones((), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, cache = decode_step(params, cfg, tok, torch.full((B,), S + i, device=dev), cache)
+        finite &= torch.isfinite(lg).all()
+        tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    assert bool(finite), "a greedy step gave a non-finite logit"
+
+    def eight_steps():
+        nonlocal lg, cache
+        t_ = tok
+        for i in range(8):
+            lg, cache = decode_step(params, cfg, t_, torch.full((B,), S + steps + i, device=dev),
+                                    cache)
+            t_ = lg.argmax(-1)
+        return t_
+
+    _, busy_ms, wall_ms = profiled(eight_steps)
+    peak = torch.cuda.max_memory_allocated()
+    assert bool(torch.isfinite(lg).all())
+    flops, _ = lm_bounds(cfg, params, B, S, 0)
+    _, step_bytes = lm_bounds(cfg, params, B, S, S + (steps + 1) / 2)
+    prefill_bound_s = max(flops / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S)
+    out = dict(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        dtype=cfg.dtype, batch=B, prompt=S, max_len=max_len, greedy_steps=steps,
+        init_s=init_s, param_bytes=param_bytes, cache_bytes=cache_bytes,
+        peak_allocated_bytes=peak,
+        prefill_ms=prefill_s * 1e3, prefill_tokens_per_s=B * S / prefill_s,
+        prefill_flops=flops, prefill_bound_ms=prefill_bound_s * 1e3,
+        prefill_bound_by=("operations" if flops / BF16_FLOP_PER_S
+                          >= param_bytes / HBM_BYTES_PER_S else "bytes"),
+        fill_ms_per_step=fill_s / S * 1e3,
+        fill_vs_prefill_max_abs=fill_vs_prefill, fill_vs_prefill_argmax_agree=argmax_agree,
+        decode_ms_per_step=decode_s / steps * 1e3, decode_tokens_per_s=B * steps / decode_s,
+        decode_bytes_per_step=step_bytes,
+        decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_bound_by="bytes",
+        idle_share_8_steps=idle_share(busy_ms, wall_ms), busy_ms_8_steps=busy_ms,
+        wall_ms_8_steps=wall_ms,
+    )
+    del params, cache, last, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_lm(dev, smi):
+    """Phase 18 (``lm_serve``): the LM substrate's serving path on the card.
+    (a) fp32 at full width, reduced depth (``lm_fp32_checks``): Qwen1.5-4B
+    and Qwen2-VL-7B at 2 layers, HuBERT-XLarge at 2, Gemma3-27B at 8 (one
+    5 + 1 unit and the 2 tail locals, window 1024, decoded over 1088
+    positions); (b) Qwen1.5-4B at its published width and depth in bf16
+    (``lm_served``). The path runs no hand-written kernel: the launch counts
+    stay 0. Prints the ``{"lm": ...}`` line."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    def fp32(name, layers):
+        return configs.get_config(name).replace(dtype="float32", param_dtype="float32",
+                                                num_layers=layers)
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    errs, witness = lm_fp32_checks(dev, fp32("qwen1.5-4b", 2), fp32("gemma3-27b", 8),
+                                   fp32("qwen2-vl-7b", 2), fp32("hubert-xlarge", 2))
+    rel = {k: r for k, (_, r) in errs.items()}
+    errs = {k: e for k, (e, _) in errs.items()}
+    log(phase="lm_fp32", tol=LM_TOL, max_abs_err=errs, rel_err=rel, ring_witness=witness,
+        seconds=time.perf_counter() - t_phase, card=smi)
+    served = lm_served(dev, configs.get_config("qwen1.5-4b"))
+    counts = ops.launch_counts()
+    assert not any(counts.values()), counts
+    print(json.dumps({"lm": dict(
+        served, fp32_max_abs_err=errs, fp32_rel_err=rel, fp32_tol=LM_TOL,
+        ring_witness=witness, ring_f64_tol=RING_F64_TOL, fill_max_abs_limit=FILL_MAX_ABS,
+        fill_argmax_agree_limit=FILL_ARGMAX_AGREE,
+        tf32=torch.backends.cuda.matmul.allow_tf32,
+        bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
+        kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
+        card=smi)}, default=float), flush=True)
 
 
 def main() -> int:
@@ -2610,8 +2899,9 @@ def main() -> int:
     for counts in paths:
         for k in served:
             served[k] += counts[k]
+    serve_lm(dev, smi)                                  # 18. the LM substrate
 
-    # ---------------------------------------------------------- 6. report
+    # ---------------------------------------------------------- 19. report
     # one entry per kernel route; a kernel's own count takes all of its
     # routes, so the f32-row and K <= 256 entries are the rest
     sources = {

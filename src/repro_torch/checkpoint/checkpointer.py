@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch._arrays import bf16_from_words, bf16_words, is_bf16
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.runtime.faults import fault_point
 
@@ -79,15 +80,11 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: Tuple[str, ...] = ()):
     return leaves["/".join(prefix)]
 
 
-def _is_bf16(dtype) -> bool:
-    return dtype == torch.bfloat16 or getattr(dtype, "name", None) == "bfloat16"
-
-
 def _torch_dtype(dtype) -> torch.dtype:
     """A target leaf's dtype (torch, numpy or ml_dtypes) as a torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
-    if _is_bf16(dtype):
+    if is_bf16(dtype):
         return torch.bfloat16
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
@@ -95,19 +92,14 @@ def _torch_dtype(dtype) -> torch.dtype:
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(the array to store, its manifest dtype): bf16 as a uint16 view."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-        a = t.numpy()
+        if leaf.dtype == torch.bfloat16:
+            return bf16_words(leaf), "bfloat16"
+        a = leaf.detach().cpu().contiguous().numpy()
     else:
         a = np.asarray(leaf)
-    if a.dtype.name == "bfloat16":
+    if is_bf16(a.dtype):
         return a.view(np.uint16), "bfloat16"
     return a, str(a.dtype)
-
-
-def _bf16_tensor(arr: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
 
 
 class Checkpointer:
@@ -257,7 +249,7 @@ class Checkpointer:
             arr = data[k]
             want = manifest["leaves"].get(key, {}).get("dtype")
             if want == "bfloat16" and arr.dtype == np.uint16:
-                arr = _bf16_tensor(arr)
+                arr = bf16_from_words(arr)
             arrays[key] = arr
         return manifest, arrays
 
@@ -330,8 +322,8 @@ class Checkpointer:
             want = getattr(like, "dtype", None)
             if arr.dtype == np.uint16 and (
                     stored.get(key, {}).get("dtype") == "bfloat16"
-                    or (want is not None and _is_bf16(want))):
-                t = _bf16_tensor(arr)
+                    or (want is not None and is_bf16(want))):
+                t = bf16_from_words(arr)
             else:
                 t = torch.from_numpy(np.ascontiguousarray(arr))
             if want is not None:

@@ -1,0 +1,389 @@
+"""Model assembly for the assigned architecture pool: the serving path of
+the transformer-unit families.
+
+The port of ``repro.models.lm`` for the families ``dense``, ``vlm`` and
+``audio``: transformer units (attention + FFN) with the per-family
+attention flavors (GQA, RoPE / M-RoPE, sliding-window local:global
+patterns with tail locals, QKV bias, softcap, bidirectional encoders).
+Experts (``moe.num_experts > 0``) and the recurrent kinds (xLSTM, Zamba2)
+raise ``NotImplementedError``: they come with later slices of the port.
+
+Params and caches are nested dicts with the reference's keys and its
+stacked ``[n_units, …]`` layout, so a tree carries across
+(``params_from_reference``, ``cache_from_reference``) and either
+package's checkpointer reads the other's. The reference's ``lax.scan``
+over units is a Python loop over views of the stacked tensors.
+
+Public entry points:
+  init_params(cfg, seed_or_generator, device=)   → param tree
+  forward(params, cfg, batch, ctx)               → (logits [B,S,V] f32, aux)
+  prefill(params, cfg, batch, ctx)               → logits of the last position
+  init_cache(cfg, batch_size, max_len, device=)  → decode state
+  decode_step(params, cfg, token, pos, cache)    → (logits [B,V] f32, cache)
+
+``decode_step`` writes each new key, value and ring position into the
+cache's tensors in place and returns the same tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch._arrays import tensor_from_numpy
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.config import ModelConfig
+from repro_torch.models import common as cm
+
+
+# ---------------------------------------------------------------------------
+# unit structure
+# ---------------------------------------------------------------------------
+
+
+def unit_layout(cfg: ModelConfig) -> Dict[str, Any]:
+    """How many layers form one scanned unit, and of which kinds."""
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        if cfg.local_global_ratio > 0:
+            unit = cfg.local_global_ratio + 1
+            return {"kind": "transformer", "unit_layers": unit,
+                    "n_units": cfg.num_layers // unit,
+                    "locals": cfg.local_global_ratio,
+                    "tail_locals": cfg.num_layers % unit}
+        return {"kind": "transformer", "unit_layers": 1,
+                "n_units": cfg.num_layers, "locals": 0, "tail_locals": 0}
+    if cfg.family == "ssm":
+        every = cfg.xlstm_slstm_every or cfg.num_layers + 1
+        if cfg.xlstm_slstm_every:
+            if cfg.num_layers % every:
+                raise ValueError(f"{cfg.num_layers} layers are no whole number of "
+                                 f"{every}-block xLSTM units")
+            return {"kind": "xlstm", "unit_layers": every,
+                    "n_units": cfg.num_layers // every,
+                    "mlstm_per_unit": every - 1}
+        return {"kind": "xlstm", "unit_layers": 1, "n_units": cfg.num_layers,
+                "mlstm_per_unit": 1}
+    if cfg.family == "hybrid":
+        every = cfg.hybrid_attn_every
+        if not (every > 0 and cfg.num_layers % every == 0):
+            raise ValueError(f"{cfg.num_layers} layers are no whole number of "
+                             f"{every}-block Zamba units")
+        return {"kind": "zamba", "unit_layers": every,
+                "n_units": cfg.num_layers // every, "mamba_per_unit": every}
+    raise ValueError(cfg.family)
+
+
+def _supported_layout(cfg: ModelConfig) -> Dict[str, Any]:
+    """``unit_layout(cfg)`` for a config this slice of the port runs;
+    ``NotImplementedError`` for the kinds that later slices port."""
+    layout = unit_layout(cfg)
+    if layout["kind"] == "xlstm":
+        raise NotImplementedError(
+            f"{cfg.name}: xLSTM units (models/recurrent.py) come with the port's "
+            "recurrent slice (ROADMAP.md item 14c)")
+    if layout["kind"] == "zamba":
+        raise NotImplementedError(
+            f"{cfg.name}: Zamba2 units (models/recurrent.py) come with the port's "
+            "recurrent slice (ROADMAP.md item 14c)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks (models/moe.py) come with the port's MoE slice "
+            "(ROADMAP.md item 14b)")
+    return layout
+
+
+def map_tree(tree, fn):
+    """``fn`` applied to every leaf of a nested dict (a param or cache
+    tree), the keys kept."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _at(tree, i: int):
+    """The i-th slice of every leaf of a stacked tree (views)."""
+    return map_tree(tree, lambda a: a[i])
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+    zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
+    return {"ln1": zeros(), "attn": cm.init_attention(cfg, gen), "ln2": zeros(),
+            "ffn": cm.init_ffn(cfg, gen)}
+
+
+def _init_transformer_unit(cfg: ModelConfig, gen: torch.Generator, layout) -> Dict[str, Any]:
+    if layout["locals"]:
+        local = _stack([_init_block(cfg, gen) for _ in range(layout["locals"])])
+        return {"local": local, "global": _init_block(cfg, gen)}
+    return {"block": _init_block(cfg, gen)}
+
+
+def init_params(cfg: ModelConfig, seed_or_generator: Union[int, torch.Generator], *,
+                device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's param tree (keys, stacked shapes, dtypes), drawn as
+    the reference draws it: truncated normals on [−2, 2] (dense weights
+    scaled by 1/√fan_in), zero norms and biases. An int seeds a generator
+    on ``device`` (CUDA by default); a generator must live on ``device``."""
+    layout = _supported_layout(cfg)
+    dev = resolve_device(device)
+    if isinstance(seed_or_generator, torch.Generator):
+        gen = seed_or_generator
+        if torch.device(gen.device).type != dev.type:
+            raise ValueError(f"the generator is on {gen.device}, the params go to {dev}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(seed_or_generator))
+    dt = cm.dtype_of(cfg)
+    params: Dict[str, Any] = {
+        "embed": cm.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
+    }
+    params["units"] = _stack([_init_transformer_unit(cfg, gen, layout)
+                              for _ in range(max(layout["n_units"], 1))])
+    if layout["tail_locals"]:
+        params["tail_local"] = _stack([_init_block(cfg, gen)
+                                       for _ in range(layout["tail_locals"])])
+    if not cfg.tie_embeddings:
+        params["lm_head"] = cm.dense_init(gen, (cfg.d_model, cfg.vocab_size), 0, dt)
+    return params
+
+
+def params_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
+    """The reference's param tree (nested dicts of numpy arrays, as
+    ``jax.device_get`` gives them; bf16 leaves as ``ml_dtypes`` arrays) as
+    the port's tree of tensors on ``device`` (CUDA by default): the same
+    keys, the stacked layout, the same dtypes and bits."""
+    _supported_layout(cfg)
+    dev = resolve_device(device)
+    return map_tree(tree, lambda a: tensor_from_numpy(a).to(dev))
+
+
+def cache_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
+    """The reference's decode cache (``init_cache``'s tree, numpy leaves)
+    as the port's, on ``device`` (CUDA by default)."""
+    return params_from_reference(cfg, tree, device=device)
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    """Run options, as the reference's. ``mesh`` and ``shard_heads`` place
+    work on a device mesh; the port runs on one card without sharding
+    rules, so setting either raises."""
+
+    mesh: Optional[Any] = None
+    unroll_chunks: bool = False
+    q_chunk: int = 1024
+    rec_chunk: int = 128
+    n_units_override: Optional[int] = None     # 0 → skip the stack
+    kv_range_chunking: bool = False
+    shard_heads: bool = False
+
+    def __post_init__(self):
+        if self.mesh is not None or self.shard_heads:
+            raise NotImplementedError(
+                "RunCtx(mesh=, shard_heads=) shard over a device mesh; the port "
+                "runs on one card and has no sharding rules")
+
+
+def _attn_block(blk, cfg: ModelConfig, x, pos, ctx: RunCtx, *, sliding: int, causal: bool):
+    h = cm.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    h = cm.attention(
+        blk["attn"], cfg, h, pos, causal=causal, sliding_window=sliding,
+        q_chunk=ctx.q_chunk, unroll_chunks=ctx.unroll_chunks,
+        kv_range_chunking=ctx.kv_range_chunking and causal,
+    )
+    x = x + h
+    h = cm.rms_norm(x, blk["ln2"], cfg.norm_eps)
+    return x + cm.ffn(blk["ffn"], cfg, h)
+
+
+def _transformer_unit_fwd(cfg, unit, x, pos, ctx: RunCtx, layout):
+    causal = not cfg.encoder_only
+    if layout["locals"]:
+        for i in range(layout["locals"]):
+            x = _attn_block(_at(unit["local"], i), cfg, x, pos, ctx,
+                            sliding=cfg.sliding_window, causal=causal)
+        return _attn_block(unit["global"], cfg, x, pos, ctx, sliding=0, causal=causal)
+    return _attn_block(unit["block"], cfg, x, pos, ctx, sliding=cfg.sliding_window,
+                       causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill-style)
+# ---------------------------------------------------------------------------
+
+
+def _scale_embed(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x · √d_model, the root taken in x's dtype (bf16: √5376 → 73.5)."""
+    if not cfg.scale_embed:
+        return x
+    return x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype))     # a host scalar
+
+
+def _embed_in(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.frontend == "audio_frames":
+        x = batch["frames"].to(cm.dtype_of(cfg))
+        B, S = x.shape[:2]
+        return x, torch.arange(S, device=x.device)[None].expand(B, S)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _scale_embed(cfg, params["embed"][tokens])
+    if cfg.rope_style == "mrope":
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(S, device=x.device)[None, None].expand(3, B, S)
+        return x, pos
+    return x, torch.arange(S, device=x.device)[None].expand(B, S)
+
+
+def _head(params, cfg: ModelConfig, x) -> torch.Tensor:
+    x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ w).float()
+
+
+def forward(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. ``batch``: ``tokens`` [B, S] (``positions``
+    [3, B, S] for M-RoPE) or ``frames`` [B, S, D]. Returns (logits
+    [B,S,V] f32, aux loss; 0 without experts)."""
+    layout = _supported_layout(cfg)
+    x, pos = _embed_in(params, cfg, batch)
+    n_units = layout["n_units"] if ctx.n_units_override is None else ctx.n_units_override
+    for u in range(min(n_units, layout["n_units"])):
+        x = _transformer_unit_fwd(cfg, _at(params["units"], u), x, pos, ctx, layout)
+    if layout["tail_locals"] and (ctx.n_units_override is None or ctx.n_units_override > 0):
+        for i in range(layout["tail_locals"]):
+            x = _attn_block(_at(params["tail_local"], i), cfg, x, pos, ctx,
+                            sliding=cfg.sliding_window, causal=not cfg.encoder_only)
+    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def prefill(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> torch.Tensor:
+    """Prefill = full forward; the logits of the last position [B, V]. As in
+    the reference, no cache is built: ``decode_step`` fills one."""
+    logits, _ = forward(params, cfg, batch, ctx)
+    return logits[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving: decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """Decode state for all units, on ``device`` (CUDA by default): a
+    global KV of ``max_len`` positions per attention layer; for a
+    local:global pattern, ring buffers of ``sliding_window`` slots for the
+    local layers (and the tail locals) with their positions (−1 = empty)."""
+    layout = _supported_layout(cfg)
+    dev = resolve_device(device)
+    n, dt = layout["n_units"], cm.dtype_of(cfg)
+    KV, hd, B = cfg.num_kv_heads, cfg.head_dim, batch_size
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def ring(*lead):
+        W = max(cfg.sliding_window, 1)
+        return {"k": zeros(*lead, B, W, KV, hd), "v": zeros(*lead, B, W, KV, hd),
+                "pos": torch.full((*lead, B, W), -1, dtype=torch.int32, device=dev)}
+
+    glob = {"k": zeros(n, B, max_len, KV, hd), "v": zeros(n, B, max_len, KV, hd)}
+    if not layout["locals"]:
+        return {"block": glob}
+    out = {"local": ring(n, layout["locals"]), "global": glob}
+    if layout["tail_locals"]:
+        out["tail_local"] = ring(layout["tail_locals"])
+    return out
+
+
+def decode_step(params, cfg: ModelConfig, token, pos, cache,
+                ctx: RunCtx = RunCtx(), embeds: Optional[torch.Tensor] = None):
+    """One-token decode. token [B] int (or embeds [B, D]), pos [B] int
+    (or [3, B] for M-RoPE), each below the cache's ``max_len``. Returns
+    (logits [B, V] f32, cache), the cache updated in place. (The
+    reference's one-hot write drops a token at ``pos ≥ max_len``; the
+    port's index write raises on the CPU and fails on the card.)"""
+    layout = _supported_layout(cfg)
+    if embeds is None:
+        x = _scale_embed(cfg, params["embed"][token][:, None, :])       # [B,1,D]
+    else:
+        x = embeds[:, None, :].to(cm.dtype_of(cfg))
+    if ctx.n_units_override == 0:          # the zero-stack variant
+        return _head(params, cfg, x)[:, 0], cache
+    for u in range(layout["n_units"]):
+        cache_u = {k: _at(v, u) for k, v in cache.items() if k != "tail_local"}
+        x, _ = _transformer_unit_decode(cfg, _at(params["units"], u), x, pos, cache_u, layout)
+    for i in range(layout["tail_locals"]):
+        x = _local_decode(cfg, _at(params["tail_local"], i), x, pos, cache["tail_local"], i)
+    return _head(params, cfg, x)[:, 0], cache
+
+
+def _local_decode(cfg, blk, x, pos, ring, i):
+    """One sliding-window layer's decode over ring ``i`` of ``ring``."""
+    h = cm.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    x = x + _ring_attention_decode(blk["attn"], cfg, h, pos, ring["k"][i], ring["v"][i],
+                                   ring["pos"][i])[0]
+    return x + cm.ffn(blk["ffn"], cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps))
+
+
+def _kv_decode(cfg, blk, x, pos, kv, sliding_window=0):
+    """One layer's decode over its KV cache ``kv``."""
+    h = cm.rms_norm(x, blk["ln1"], cfg.norm_eps)
+    x = x + cm.attention_decode(blk["attn"], cfg, h, pos, kv["k"], kv["v"],
+                                sliding_window=sliding_window)[0]
+    return x + cm.ffn(blk["ffn"], cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps))
+
+
+def _transformer_unit_decode(cfg, unit, x, pos, cache_u, layout):
+    """One unit's decode over its cache views, written in place. Returns
+    (x, cache_u)."""
+    if layout["locals"]:
+        for i in range(layout["locals"]):
+            x = _local_decode(cfg, _at(unit["local"], i), x, pos, cache_u["local"], i)
+        return _kv_decode(cfg, unit["global"], x, pos, cache_u["global"]), cache_u
+    return _kv_decode(cfg, unit["block"], x, pos, cache_u["block"], cfg.sliding_window), cache_u
+
+
+def _ring_attention_decode(p, cfg, x, pos, k_cache, v_cache, pos_cache):
+    """Sliding-window decode with a ring-buffer cache [B, W, KV, hd]: the
+    token goes to slot ``pos % W`` (its position into ``pos_cache``), in
+    place; a slot is attended while ``0 ≤ p ≤ pos`` and ``pos − p <
+    sliding_window``. Returns (out [B,1,D], k', v', pos'), the caches
+    themselves."""
+    B = x.shape[0]
+    W = k_cache.shape[1]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = cm._qkv(p, cfg, x)
+    if cfg.rope_style == "rope":
+        q = cm.apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = cm.apply_rope(k, pos[:, None], cfg.rope_theta)
+    slot = pos % W
+    cm._write_slot(k_cache, slot, k[:, 0])
+    cm._write_slot(v_cache, slot, v[:, 0])
+    cm._write_slot(pos_cache, slot, pos.to(pos_cache.dtype))
+    kk = cm._repeat_kv(k_cache, H // KV)
+    vv = cm._repeat_kv(v_cache, H // KV)
+    p2 = pos_cache
+    m = (p2 >= 0) & (p2 <= pos[:, None]) & (pos[:, None] - p2 < cfg.sliding_window)
+    out = cm._attend_dense(q, kk, vv, m[:, None, :], cfg.attn_logit_softcap)
+    out = out.reshape(B, 1, H * hd) @ p["wo"]
+    return out, k_cache, v_cache, pos_cache
