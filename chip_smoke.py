@@ -138,7 +138,20 @@ resets the launch counts before it and reads them after it.
     share and the bounds (prefill: 2 · N · tokens + attention over the
     989 TFLOP/s bf16 rate; a decode step: weights + attended KV over
     3.35 TB/s).
-19. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+19. The MoE serving path (``serve_lm_moe``), dense and expert-parallel
+    over ``VirtualMesh(data=ep)`` (one card, the ranks a tensor
+    dimension); no hand-written kernel, launch counts 0. (a) OLMoE-1B-7B
+    at its published width, 2 layers, fp32 (``lm_moe_fp32``): card
+    against CPU through both paths (logits and aux), teacher-forced decode
+    against ``forward``, each layer's EP at capacity 8 against its dense
+    layer. (b) OLMoE-1B-7B as published, bf16: the ``lm`` run of phase 18
+    through ``RunCtx()``, then ``VirtualMesh(8)`` at capacity 1.5: prefill
+    with its dropped slots per layer, 8 decode steps held against the
+    dense steps. (c) Kimi K2 at its published width, 1 layer, bf16 (19.4 B
+    params): both paths' logits finite and equal where no slot dropped.
+    One ``{"lm_moe": ...}`` line, with the bounds by path (prefill: expert
+    rows E · B · S dense, E · cap_e on EP, B · S · k routed).
+20. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -2395,6 +2408,23 @@ def ring_witness(params64, cfg, toks, full, dec):
     return out
 
 
+def teacher_forced(params, cfg, toks, ctx=None):
+    """``decode_step``'s logits [B, n, V] at every position of ``toks``
+    (on their device), from an empty cache."""
+    import torch
+
+    from repro_torch.models import RunCtx, decode_step, init_cache
+
+    B, n = toks.shape
+    ctx = RunCtx() if ctx is None else ctx
+    cache = init_cache(cfg, B, n, device=toks.device)
+    out = torch.empty((B, n, cfg.vocab_size), dtype=torch.float32, device=toks.device)
+    for t in range(n):
+        out[:, t], cache = decode_step(params, cfg, toks[:, t],
+                                       torch.full((B,), t, device=toks.device), cache, ctx)
+    return out
+
+
 def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
     """Phase 18a (``lm_fp32``): full widths at reduced depth, in fp32 with
     TF32 off. The card's ``forward`` against the port's CPU ``forward`` on the
@@ -2406,7 +2436,7 @@ def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
     the witness)."""
     import torch
 
-    from repro_torch.models import decode_step, forward, init_cache, init_params
+    from repro_torch.models import forward, init_params
     from repro_torch.models.lm import map_tree
 
     rng = np.random.default_rng(0)
@@ -2419,16 +2449,6 @@ def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
         want, _ = forward(cpu, cfg, batch)
         errs[what] = lm_close(got, want, what)
         return params, got
-
-    def teacher_forced(params, cfg, toks):
-        """``decode_step``'s logits [B, n, V] at every position of ``toks``."""
-        B, n = toks.shape
-        cache = init_cache(cfg, B, n, device=dev)
-        out = torch.empty((B, n, cfg.vocab_size), dtype=torch.float32, device=dev)
-        for t in range(n):
-            out[:, t], cache = decode_step(params, cfg, toks[:, t],
-                                           torch.full((B,), t, device=dev), cache)
-        return out
 
     toks = torch.from_numpy(rng.integers(0, qwen.vocab_size, size=(2, S)))
     params, full = card_vs_cpu(qwen, {"tokens": toks}, "qwen_card_vs_cpu")
@@ -2457,16 +2477,25 @@ def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
     return errs, witness
 
 
-def lm_bounds(cfg, params, B, S, attended):
+def lm_bounds(cfg, params, B, S, attended, expert_rows=None):
     """(prefill FLOPs, decode bytes read per step at ``attended`` positions):
     2 · N · tokens over the weights that multiply (the embedding table is a
     lookup unless it is the tied head) plus the causal attention's
     QK^T and PV over the positions each query attends; a decode step reads
     those weights once, B embedding rows, and the attended keys and values
-    of every layer."""
+    of every layer. An MoE config's expert weights multiply
+    ``expert_rows`` rows a layer, summed over its experts: B · S · E on
+    the dense path (every expert for every token, the default), E · cap_e
+    on the EP path, B · S · k for the routed slots alone; its router
+    multiplies every token."""
     units = [kv for k in ("units", "tail_local") if k in params for kv in _leaves(params[k])]
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    n_mm = sum(t.numel() for k, t in units if k.startswith("w")) + head.numel()
+    experts = {"w1", "w2", "w3"} if cfg.is_moe else set()
+    n_mm = sum(t.numel() for k, t in units
+               if (k.startswith("w") and k not in experts) or k == "router") + head.numel()
+    E = max(cfg.moe.num_experts, 1)
+    per_expert = sum(t.numel() for k, t in units if k in experts) / E    # all layers
+    rows = B * S * E if expert_rows is None else expert_rows
     units = [t for _, t in units]
     layers, H, KV, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn_flops = layers * 4 * B * H * hd * S * (S + 1) / 2
@@ -2474,21 +2503,111 @@ def lm_bounds(cfg, params, B, S, attended):
         head.numel() * head.element_size())
     embed_rows = 0 if cfg.tie_embeddings else B * cfg.d_model * params["embed"].element_size()
     kv_bytes = layers * 2 * B * attended * KV * hd * params["embed"].element_size()
-    return 2 * n_mm * B * S + attn_flops, weight_bytes + embed_rows + kv_bytes
+    return (2 * n_mm * B * S + 2 * per_expert * rows + attn_flops,
+            weight_bytes + embed_rows + kv_bytes)
 
 
-def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64):
+class RouteLog:
+    """While active, records each ``repro_torch.models.moe._route`` call
+    (one a MoE layer): its experts and the gap between each token's k-th
+    and (k+1)-th router probability. Wraps the module's function, as the
+    dense and EP paths look it up there; outside a ``with`` nothing is
+    recorded."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.calls, self._moe, self._route = [], moe, moe._route
+
+        def route(cfg, xt, router):
+            gates, experts, aux = self._route(cfg, xt, router)
+            k = cfg.moe.experts_per_token
+            top = torch.topk(torch.softmax(xt.float() @ router, dim=-1), k + 1, dim=-1).values
+            self.calls.append((experts.reshape(-1, k), (top[..., k - 1] - top[..., k]).reshape(-1)))
+            return gates, experts, aux
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._route
+
+    def last_rows(self, B):
+        """Per layer: (the sorted experts [B, k], the gap [B]) of each
+        batch row's last token (decode: its one token)."""
+        return self.rows(B, last=True)
+
+    def rows(self, B, last=False):
+        """Per layer: (the sorted experts, the gaps) of every token [B·S]
+        in batch order (the EP path routes rank-major, the same order), or
+        of each row's last token."""
+        import torch
+
+        out = []
+        for e, g in self.calls:
+            e, g = e.reshape(B, -1, e.shape[-1]), g.reshape(B, -1)
+            if last:
+                e, g = e[:, -1:], g[:, -1:]
+            out.append((torch.sort(e.reshape(-1, e.shape[-1]), dim=-1).values, g.reshape(-1)))
+        return out
+
+
+def moe_rule(got, want, routes_got, routes_want, what):
+    """The bf16 rule (max |Δ| ≤ FILL_MAX_ABS, argmax agreement ≥
+    FILL_ARGMAX_AGREE) for a model whose top-k routing is discrete. A bf16
+    rounding that moves a token's router probabilities across a near tie
+    of its k-th and (k+1)-th expert gives that row other experts in that
+    layer, and other logits after it. Held: argmax agreement ≥
+    FILL_ARGMAX_AGREE over every row; max |Δ| ≤ FILL_MAX_ABS over the rows
+    routed alike in every layer (at least one); and each row routed apart
+    first parts at a near tie: its gap on ``want``'s path in that layer
+    below the median gap over all rows and layers (a tie broken the other
+    way, not a misroute). ``routes_*``: ``RouteLog.last_rows``. Returns
+    the numbers."""
+    import torch
+
+    assert len(routes_got) == len(routes_want) > 0, what
+    rows = got.shape[0]
+    alike = torch.ones(rows, dtype=torch.bool, device=got.device)
+    first = {}
+    for layer, ((e_got, _), (e_want, gap)) in enumerate(zip(routes_got, routes_want)):
+        apart = (e_got != e_want).any(-1)
+        for r in torch.nonzero(apart & alike).flatten().tolist():
+            first[r] = (layer, float(gap[r]))
+        alike &= ~apart
+    median_gap = float(torch.cat([g for _, g in routes_want]).median())
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()), what
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    assert agree >= FILL_ARGMAX_AGREE, f"{what}: argmax agreement {agree}"
+    assert bool(alike.any()), f"{what}: no row routed alike ({first})"
+    alike_diff = float((got[alike] - want[alike]).abs().max())
+    assert alike_diff <= FILL_MAX_ABS, f"{what}: max |Δ| {alike_diff} over the rows routed alike"
+    assert all(gap < median_gap for _, gap in first.values()), (
+        f"{what}: a row parted at no near tie: {first}, median gap {median_gap}")
+    return dict(max_abs=float((got - want).abs().max()), max_abs_routed_alike=alike_diff,
+                argmax_agree=agree, rows_routed_apart=len(first),
+                first_parting={str(r): dict(layer=lay, gap=g) for r, (lay, g) in first.items()},
+                median_gap=median_gap)
+
+
+def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False):
     """Phase 18b (``lm``): ``cfg`` served in its own bf16 from the port's
     seeded init: B prompts of S tokens through ``prefill`` (once to warm,
     once timed); a cache of ``max_len`` filled by teacher-forced
     ``decode_step`` over the prompts, whose last logits are held against
     ``prefill``'s (max |Δ| ≤ FILL_MAX_ABS, argmax agreement ≥
-    FILL_ARGMAX_AGREE); then ``steps`` greedy steps, every logit finite;
+    FILL_ARGMAX_AGREE; an MoE model by ``moe_rule``, the routes of the
+    warm prefill and the last fill step recorded); then ``steps`` greedy
+    steps, every logit finite;
     then 8 more steps under the profiler (idle share). On the card only.
-    Returns the numbers of the ``lm`` line."""
+    Returns the numbers of the ``lm`` line; with ``keep``, also the params,
+    prompts, prefill's last logits and a copy of the filled cache."""
     import torch
 
     from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models.lm import map_tree
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2500,7 +2619,8 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64):
     param_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S))).to(dev)
 
-    prefill(params, cfg, {"tokens": prompts})           # warm: the library's plans
+    with RouteLog() as prefill_routes:                  # warm: the library's plans
+        prefill(params, cfg, {"tokens": prompts})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     last = prefill(params, cfg, {"tokens": prompts})
@@ -2510,16 +2630,26 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64):
     cache = init_cache(cfg, B, max_len, device=dev)
     cache_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
     t0 = time.perf_counter()
-    for t in range(S):
-        lg, cache = decode_step(params, cfg, prompts[:, t], torch.full((B,), t, device=dev),
+    for t in range(S - 1):
+        decode_step(params, cfg, prompts[:, t], torch.full((B,), t, device=dev), cache)
+    with RouteLog() as fill_routes:
+        lg, cache = decode_step(params, cfg, prompts[:, -1], torch.full((B,), S - 1, device=dev),
                                 cache)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    fill_vs_prefill = float((lg - last).abs().max())
-    argmax_agree = float((lg.argmax(-1) == last.argmax(-1)).float().mean())
-    assert bool(torch.isfinite(lg).all()) and bool(torch.isfinite(last).all())
-    assert fill_vs_prefill <= FILL_MAX_ABS and argmax_agree >= FILL_ARGMAX_AGREE, (
-        f"fill against prefill: max |Δ| {fill_vs_prefill}, argmax agreement {argmax_agree}")
+    routing = None
+    if cfg.is_moe:
+        routing = moe_rule(lg, last, fill_routes.last_rows(B), prefill_routes.last_rows(B),
+                           "fill against prefill")
+        fill_vs_prefill, argmax_agree = routing["max_abs"], routing["argmax_agree"]
+    else:
+        fill_vs_prefill = float((lg - last).abs().max())
+        argmax_agree = float((lg.argmax(-1) == last.argmax(-1)).float().mean())
+        assert bool(torch.isfinite(lg).all()) and bool(torch.isfinite(last).all())
+        assert fill_vs_prefill <= FILL_MAX_ABS and argmax_agree >= FILL_ARGMAX_AGREE, (
+            f"fill against prefill: max |Δ| {fill_vs_prefill}, argmax agreement "
+            f"{argmax_agree}")
+    filled = map_tree(cache, torch.clone) if keep else None
 
     tok, finite = lg.argmax(-1), torch.ones((), dtype=torch.bool, device=dev)
     t0 = time.perf_counter()
@@ -2543,7 +2673,7 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64):
     _, busy_ms, wall_ms = profiled(eight_steps)
     peak = torch.cuda.max_memory_allocated()
     assert bool(torch.isfinite(lg).all())
-    flops, _ = lm_bounds(cfg, params, B, S, 0)
+    flops, _ = lm_bounds(cfg, params, B, S, 0)          # the dense path: every expert
     _, step_bytes = lm_bounds(cfg, params, B, S, S + (steps + 1) / 2)
     prefill_bound_s = max(flops / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S)
     out = dict(
@@ -2564,6 +2694,10 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64):
         idle_share_8_steps=idle_share(busy_ms, wall_ms), busy_ms_8_steps=busy_ms,
         wall_ms_8_steps=wall_ms,
     )
+    if routing is not None:
+        out["fill_vs_prefill_routing"] = routing
+    if keep:
+        return out, dict(params=params, prompts=prompts, last=last, filled=filled)
     del params, cache, last, lg
     torch.cuda.empty_cache()
     return out
@@ -2604,6 +2738,257 @@ def serve_lm(dev, smi):
         tf32=torch.backends.cuda.matmul.allow_tf32,
         bf16_reduced_precision_reduction=(
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
+        kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
+        card=smi)}, default=float), flush=True)
+
+
+def lm_moe_fp32_checks(dev, olmoe, S=64, ep=2):
+    """Phase 19a (``lm_moe_fp32``): ``olmoe`` (full width, reduced depth) in
+    fp32 with TF32 off, on the same params and 2 × S tokens, each at
+    LM_TOL: the card's ``forward`` (logits and aux) against the CPU's,
+    through ``RunCtx()`` and ``RunCtx(mesh=VirtualMesh(ep))`` (the default
+    capacity: both devices must drop the same slots); teacher-forced
+    ``decode_step`` against the card's ``forward``; each layer's
+    ``moe_ffn_ep`` at capacity 8, where no slot can drop, against its
+    ``moe_ffn_dense`` on a seeded normal input. Returns ({check: (max |err|,
+    relative)}, the EP forward's dropped slots per layer at 1.5)."""
+    import torch
+
+    from repro_torch.models import RunCtx, VirtualMesh, forward, init_params, moe
+    from repro_torch.models.lm import map_tree
+
+    rng = np.random.default_rng(2)
+    errs, drops = {}, {}
+    params = init_params(olmoe, 0, device=dev)
+    cpu = map_tree(params, lambda t: t.cpu())
+    toks = torch.from_numpy(rng.integers(0, olmoe.vocab_size, size=(2, S)))
+    full = None
+    for name in ("dense", "ep"):
+        logs = ([], [])
+        ctxs = [RunCtx(mesh=VirtualMesh(ep, drop_log=log) if name == "ep" else None)
+                for log in logs]
+        got, aux = forward(params, olmoe, {"tokens": toks.to(dev)}, ctxs[0])
+        want, want_aux = forward(cpu, olmoe, {"tokens": toks}, ctxs[1])
+        errs[f"olmoe_{name}_card_vs_cpu"] = lm_close(got, want, f"OLMoE {name} card vs CPU")
+        errs[f"olmoe_{name}_aux_card_vs_cpu"] = lm_close(aux, want_aux, f"OLMoE {name} aux")
+        if name == "ep":
+            drops["card"] = [int(d.sum()) for d in logs[0]]
+            assert drops["card"] == [int(d.sum()) for d in logs[1]], "card and CPU drop apart"
+        else:
+            full = got
+    del cpu, want
+    errs["olmoe_decode_vs_forward"] = lm_close(teacher_forced(params, olmoe, toks.to(dev)),
+                                               full, "OLMoE decode against forward")
+    x = torch.from_numpy(rng.standard_normal((2, S, olmoe.d_model)).astype(np.float32)).to(dev)
+    for u in range(olmoe.num_layers):
+        p = map_tree(params["units"]["block"]["moe"], lambda t: t[u])
+        log = []
+        dense, dense_aux = moe.moe_ffn_dense(p, olmoe, x)
+        got, _ = moe.moe_ffn_ep(p, olmoe, x, VirtualMesh(ep, drop_log=log), capacity_factor=8.0)
+        assert int(log[0].sum()) == 0, "a slot dropped at capacity 8"
+        errs[f"olmoe_layer{u}_ep_cap8_vs_dense"] = lm_close(got, dense, f"layer {u} EP vs dense")
+    del params, full
+    torch.cuda.empty_cache()
+    return errs, drops["card"]
+
+
+def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=8):
+    """Phase 19b (``lm_moe``): ``cfg`` served in bf16 through ``RunCtx()``
+    (``lm_served``: prefill, the fill held against it, greedy steps, the
+    profiled 8), then through ``RunCtx(mesh=VirtualMesh(ep))`` at the
+    default capacity: ``prefill`` (warm, then timed) with its dropped slots
+    per layer and its last logits against the dense path's (information
+    only); ``ep_steps`` decode steps on a copy of the filled cache beside
+    the dense path's on the same tokens, where no slot can drop (B = ep:
+    one token a rank, cap_send = k), each step held against the dense
+    step by ``moe_rule``; then the same EP steps again, timed, on another
+    copy. Returns the numbers of the ``lm_moe`` line."""
+    import torch
+
+    from repro_torch.models import RunCtx, VirtualMesh, decode_step, moe, prefill
+    from repro_torch.models.lm import map_tree
+
+    out, st = lm_served(dev, cfg, B, S, max_len, steps, keep=True)
+    params, prompts, last, cache = st["params"], st["prompts"], st["last"], st["filled"]
+    del st
+    log = []
+    ctx = RunCtx(mesh=VirtualMesh(ep, drop_log=log))
+    prefill(params, cfg, {"tokens": prompts}, ctx)          # warm
+    torch.cuda.synchronize()
+    log.clear()
+    t0 = time.perf_counter()
+    last_ep = prefill(params, cfg, {"tokens": prompts}, ctx)
+    torch.cuda.synchronize()
+    prefill_ep_s = time.perf_counter() - t0
+    prefill_drops = [int(d.sum()) for d in log]
+    assert bool(torch.isfinite(last_ep).all()), "EP prefill gave a non-finite logit"
+
+    ep_cache, timed_cache = map_tree(cache, torch.clone), map_tree(cache, torch.clone)
+    toks, log[:] = [last.argmax(-1)], []
+    step_rule = []
+    for i in range(ep_steps):
+        pos = torch.full((B,), S + i, device=dev)
+        with RouteLog() as dense_routes:
+            lg, _ = decode_step(params, cfg, toks[-1], pos, cache)
+        with RouteLog() as ep_routes:
+            lg_ep, _ = decode_step(params, cfg, toks[-1], pos, ep_cache, ctx)
+        step_rule.append(moe_rule(lg_ep, lg, ep_routes.last_rows(B), dense_routes.last_rows(B),
+                                  f"EP decode step {i} against dense"))
+        toks.append(lg.argmax(-1))
+    decode_drops = sum(int(d.sum()) for d in log)
+    assert decode_drops == 0, f"{decode_drops} slots dropped in EP decode at B = ep"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ep_steps):
+        decode_step(params, cfg, toks[i], torch.full((B,), S + i, device=dev), timed_cache, ctx)
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    cap_send, cap_e = moe.ep_capacities(cfg, B // ep * S, ep)
+    param_bytes = out["param_bytes"]
+    flops_ep, _ = lm_bounds(cfg, params, B, S, 0, expert_rows=E * cap_e)
+    flops_routed, _ = lm_bounds(cfg, params, B, S, 0, expert_rows=B * S * k)
+    _, ep_step_bytes = lm_bounds(cfg, params, B, S, S + (ep_steps + 1) / 2)
+    out.update(
+        experts=E, experts_per_token=k,
+        prefill_top_k_flops=flops_routed,
+        ep=dict(
+            data=ep, capacity_factor=1.5, prefill_cap_send=cap_send, prefill_cap_e=cap_e,
+            prefill_expert_slots_per_layer=E * cap_e, prefill_routed_slots_per_layer=B * S * k,
+            prefill_ms=prefill_ep_s * 1e3, prefill_tokens_per_s=B * S / prefill_ep_s,
+            prefill_flops=flops_ep,
+            prefill_bound_ms=max(flops_ep / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S) * 1e3,
+            prefill_dropped_slots_per_layer=prefill_drops,
+            prefill_vs_dense_max_abs=float((last_ep - last).abs().max()),
+            prefill_vs_dense_argmax_agree=float((last_ep.argmax(-1) == last.argmax(-1))
+                                                .float().mean()),
+            decode_steps=ep_steps, decode_ms_per_step=ep_s / ep_steps * 1e3,
+            decode_tokens_per_s=B * ep_steps / ep_s,
+            decode_bound_ms_per_step=ep_step_bytes / HBM_BYTES_PER_S * 1e3,
+            decode_cap_send_cap_e=list(moe.ep_capacities(cfg, B // ep, ep)),
+            decode_dropped_slots=decode_drops,
+            decode_vs_dense_max_abs=max(r["max_abs"] for r in step_rule),
+            decode_vs_dense_max_abs_routed_alike=max(r["max_abs_routed_alike"]
+                                                     for r in step_rule),
+            decode_vs_dense_argmax_agree_min=min(r["argmax_agree"] for r in step_rule),
+            decode_rows_routed_apart=[r["rows_routed_apart"] for r in step_rule],
+        ))
+    del params, prompts, last, cache, ep_cache, timed_cache, last_ep, lg, lg_ep
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_kimi_witness(dev, cfg, S=64, steps=8, ep=2):
+    """Phase 19c: ``cfg`` (Kimi K2 at its published width, 1 layer) in bf16
+    from the seeded init, after the earlier phases freed the card: B = 2
+    prompts of S tokens through ``forward`` on both paths (``RunCtx()``,
+    ``VirtualMesh(ep)`` at the default capacity), every logit finite, EP
+    held against dense by ``moe_rule`` over the tokens none of whose slots
+    dropped (one layer: a token's logits depend on its own MoE output
+    alone); then ``steps`` teacher-forced decode steps on both paths from
+    empty caches, where no slot can drop, each step by ``moe_rule``."""
+    import torch
+
+    from repro_torch.models import (RunCtx, VirtualMesh, decode_step, forward, init_cache,
+                                    init_params, moe)
+
+    assert cfg.num_layers == 1
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    B = 2
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(B, S))).to(dev)
+    log = []
+    ctx = RunCtx(mesh=VirtualMesh(ep, drop_log=log))
+    with RouteLog() as dense_routes:
+        t0 = time.perf_counter()
+        dense, _ = forward(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+    with RouteLog() as ep_routes:
+        t0 = time.perf_counter()
+        got, _ = forward(params, cfg, {"tokens": toks}, ctx)
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t0
+    kept = (log[0] == 0).reshape(-1)                    # tokens none of whose slots dropped
+    fwd_drops = int(log[0].sum())
+    fwd_rule = moe_rule(got.reshape(B * S, -1)[kept], dense.reshape(B * S, -1)[kept],
+                        [(e[kept], g[kept]) for e, g in ep_routes.rows(B)],
+                        [(e[kept], g[kept]) for e, g in dense_routes.rows(B)],
+                        "Kimi EP forward against dense")
+    caches = [init_cache(cfg, B, steps, device=dev) for _ in range(2)]
+    log.clear()
+    dec_rule = []
+    for t in range(steps):
+        pos = torch.full((B,), t, device=dev)
+        with RouteLog() as dense_routes:
+            lg, _ = decode_step(params, cfg, toks[:, t], pos, caches[0])
+        with RouteLog() as ep_routes:
+            lg_ep, _ = decode_step(params, cfg, toks[:, t], pos, caches[1], ctx)
+        dec_rule.append(moe_rule(lg_ep, lg, ep_routes.last_rows(B), dense_routes.last_rows(B),
+                                 f"Kimi EP decode step {t} against dense"))
+    assert all(int(d.sum()) == 0 for d in log), "a slot dropped in Kimi's EP decode"
+    out = dict(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, experts=cfg.moe.num_experts,
+        experts_per_token=cfg.moe.experts_per_token, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, vocab=cfg.vocab_size, dtype=cfg.dtype, batch=B, prompt=S,
+        init_s=init_s, param_bytes=param_bytes,
+        peak_allocated_bytes=torch.cuda.max_memory_allocated(),
+        forward_dense_ms=dense_s * 1e3, forward_ep_ms=ep_s * 1e3, ep_cap_send_cap_e=list(
+            moe.ep_capacities(cfg, B // ep * S, ep)),
+        ep_dropped_slots=fwd_drops, ep_tokens_with_a_dropped_slot=int((~kept).sum()),
+        ep_vs_dense_kept_tokens=fwd_rule, decode_steps=steps,
+        decode_ep_vs_dense_max_abs=max(r["max_abs"] for r in dec_rule),
+        decode_ep_vs_dense_argmax_agree_min=min(r["argmax_agree"] for r in dec_rule),
+        decode_rows_routed_apart=[r["rows_routed_apart"] for r in dec_rule],
+    )
+    del params, dense, got, caches, lg, lg_ep
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_lm_moe(dev, smi):
+    """Phase 19 (``lm_moe``): the MoE serving path on the card, dense and
+    expert-parallel over a virtual data axis. (a) OLMoE-1B-7B at its
+    published width, 2 layers, fp32 (``lm_moe_fp32_checks``); (b)
+    OLMoE-1B-7B at its published width and depth in bf16 (``lm_moe_served``);
+    (c) Kimi K2 at its published width, 1 layer, bf16 (``lm_kimi_witness``).
+    The path runs no hand-written kernel: the launch counts stay 0. Prints
+    the ``{"lm_moe": ...}`` line."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    olmoe = configs.get_config("olmoe-1b-7b")
+    errs, drops32 = lm_moe_fp32_checks(dev, olmoe.replace(
+        dtype="float32", param_dtype="float32", num_layers=2))
+    rel = {k: r for k, (_, r) in errs.items()}
+    errs = {k: e for k, (e, _) in errs.items()}
+    log(phase="lm_moe_fp32", tol=LM_TOL, max_abs_err=errs, rel_err=rel,
+        ep2_dropped_slots_per_layer_at_1_5=drops32, seconds=time.perf_counter() - t_phase,
+        card=smi)
+    t0 = time.perf_counter()
+    served = lm_moe_served(dev, olmoe)
+    served_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kimi = lm_kimi_witness(dev, configs.get_config("kimi-k2-1t-a32b").replace(num_layers=1))
+    kimi.update(seconds=time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    assert not any(counts.values()), counts
+    print(json.dumps({"lm_moe": dict(
+        served, served_s=served_s, fp32_max_abs_err=errs, fp32_rel_err=rel, fp32_tol=LM_TOL,
+        fp32_ep2_dropped_slots_per_layer_at_1_5=drops32, kimi_k2_witness=kimi,
+        fill_max_abs_limit=FILL_MAX_ABS, fill_argmax_agree_limit=FILL_ARGMAX_AGREE,
+        tf32=torch.backends.cuda.matmul.allow_tf32,
         kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
         card=smi)}, default=float), flush=True)
 
@@ -2900,8 +3285,9 @@ def main() -> int:
         for k in served:
             served[k] += counts[k]
     serve_lm(dev, smi)                                  # 18. the LM substrate
+    serve_lm_moe(dev, smi)                              # 19. its MoE serving path
 
-    # ---------------------------------------------------------- 19. report
+    # ---------------------------------------------------------- 20. report
     # one entry per kernel route; a kernel's own count takes all of its
     # routes, so the f32-row and K <= 256 entries are the rest
     sources = {

@@ -1,12 +1,14 @@
 """Model assembly for the assigned architecture pool: the serving path of
 the transformer-unit families.
 
-The port of ``repro.models.lm`` for the families ``dense``, ``vlm`` and
-``audio``: transformer units (attention + FFN) with the per-family
-attention flavors (GQA, RoPE / M-RoPE, sliding-window local:global
-patterns with tail locals, QKV bias, softcap, bidirectional encoders).
-Experts (``moe.num_experts > 0``) and the recurrent kinds (xLSTM, Zamba2)
-raise ``NotImplementedError``: they come with later slices of the port.
+The port of ``repro.models.lm`` for the families ``dense``, ``moe``,
+``vlm`` and ``audio``: transformer units (attention + FFN or MoE) with
+the per-family attention flavors (GQA, RoPE / M-RoPE, sliding-window
+local:global patterns with tail locals, QKV bias, softcap, bidirectional
+encoders). An MoE block runs ``models.moe.moe_ffn``: the dense path, or
+expert parallelism over ``RunCtx(mesh=VirtualMesh(data=ep))``. The
+recurrent kinds (xLSTM, Zamba2) raise ``NotImplementedError``: they come
+with a later slice of the port.
 
 Params and caches are nested dicts with the reference's keys and its
 stacked ``[n_units, …]`` layout, so a tree carries across
@@ -16,7 +18,7 @@ over units is a Python loop over views of the stacked tensors.
 
 Public entry points:
   init_params(cfg, seed_or_generator, device=)   → param tree
-  forward(params, cfg, batch, ctx)               → (logits [B,S,V] f32, aux)
+  forward(params, cfg, batch, ctx)               → (logits [B,S,V] f32, MoE aux)
   prefill(params, cfg, batch, ctx)               → logits of the last position
   init_cache(cfg, batch_size, max_len, device=)  → decode state
   decode_step(params, cfg, token, pos, cache)    → (logits [B,V] f32, cache)
@@ -36,6 +38,7 @@ from repro_torch._arrays import tensor_from_numpy
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
+from repro_torch.models.moe import VirtualMesh, init_moe, moe_ffn
 
 
 # ---------------------------------------------------------------------------
@@ -87,10 +90,6 @@ def _supported_layout(cfg: ModelConfig) -> Dict[str, Any]:
         raise NotImplementedError(
             f"{cfg.name}: Zamba2 units (models/recurrent.py) come with the port's "
             "recurrent slice (ROADMAP.md item 14c)")
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks (models/moe.py) come with the port's MoE slice "
-            "(ROADMAP.md item 14b)")
     return layout
 
 
@@ -102,10 +101,26 @@ def map_tree(tree, fn):
     return fn(tree)
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(make, n: int):
+    """``n`` trees drawn by ``make()`` in turn, stacked leaf by leaf into
+    [n, …] tensors. Each tree is copied in before the next is drawn, so
+    the peak is the stack and one tree (a lone tree is viewed as [1, …])."""
+    tree = make()
+    if n == 1:
+        return map_tree(tree, lambda t: t[None])
+    out = map_tree(tree, lambda t: t.new_empty((n, *t.shape)))
+
+    def put(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                put(dst[k], src[k], i)
+        else:
+            dst[i] = src
+
+    for i in range(n):
+        put(out, tree if i == 0 else make(), i)
+        tree = None
+    return out
 
 
 def _at(tree, i: int):
@@ -120,13 +135,17 @@ def _at(tree, i: int):
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
-    return {"ln1": zeros(), "attn": cm.init_attention(cfg, gen), "ln2": zeros(),
-            "ffn": cm.init_ffn(cfg, gen)}
+    blk = {"ln1": zeros(), "attn": cm.init_attention(cfg, gen), "ln2": zeros()}
+    if cfg.is_moe:
+        blk["moe"] = init_moe(cfg, gen)
+    else:
+        blk["ffn"] = cm.init_ffn(cfg, gen)
+    return blk
 
 
 def _init_transformer_unit(cfg: ModelConfig, gen: torch.Generator, layout) -> Dict[str, Any]:
     if layout["locals"]:
-        local = _stack([_init_block(cfg, gen) for _ in range(layout["locals"])])
+        local = _stacked(lambda: _init_block(cfg, gen), layout["locals"])
         return {"local": local, "global": _init_block(cfg, gen)}
     return {"block": _init_block(cfg, gen)}
 
@@ -150,11 +169,10 @@ def init_params(cfg: ModelConfig, seed_or_generator: Union[int, torch.Generator]
         "embed": cm.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
     }
-    params["units"] = _stack([_init_transformer_unit(cfg, gen, layout)
-                              for _ in range(max(layout["n_units"], 1))])
+    params["units"] = _stacked(lambda: _init_transformer_unit(cfg, gen, layout),
+                               max(layout["n_units"], 1))
     if layout["tail_locals"]:
-        params["tail_local"] = _stack([_init_block(cfg, gen)
-                                       for _ in range(layout["tail_locals"])])
+        params["tail_local"] = _stacked(lambda: _init_block(cfg, gen), layout["tail_locals"])
     if not cfg.tie_embeddings:
         params["lm_head"] = cm.dense_init(gen, (cfg.d_model, cfg.vocab_size), 0, dt)
     return params
@@ -183,9 +201,10 @@ def cache_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
-    """Run options, as the reference's. ``mesh`` and ``shard_heads`` place
-    work on a device mesh; the port runs on one card without sharding
-    rules, so setting either raises."""
+    """Run options, as the reference's. ``mesh`` may be a ``VirtualMesh``,
+    over whose data axis the MoE blocks run expert-parallel on one card;
+    any other mesh, and ``shard_heads``, place work on a device mesh,
+    which the port (one card, no sharding rules) refuses."""
 
     mesh: Optional[Any] = None
     unroll_chunks: bool = False
@@ -196,13 +215,21 @@ class RunCtx:
     shard_heads: bool = False
 
     def __post_init__(self):
-        if self.mesh is not None or self.shard_heads:
+        if (self.mesh is not None and not isinstance(self.mesh, VirtualMesh)) or self.shard_heads:
             raise NotImplementedError(
                 "RunCtx(mesh=, shard_heads=) shard over a device mesh; the port "
                 "runs on one card and has no sharding rules")
 
 
+def _mlp(blk, cfg: ModelConfig, h, mesh):
+    """The block's FFN or MoE on its normed input: (out, aux; 0.0 for an FFN)."""
+    if "ffn" in blk:
+        return cm.ffn(blk["ffn"], cfg, h), 0.0
+    return moe_ffn(blk["moe"], cfg, h, mesh)
+
+
 def _attn_block(blk, cfg: ModelConfig, x, pos, ctx: RunCtx, *, sliding: int, causal: bool):
+    """One attention + FFN/MoE block: (x, aux)."""
     h = cm.rms_norm(x, blk["ln1"], cfg.norm_eps)
     h = cm.attention(
         blk["attn"], cfg, h, pos, causal=causal, sliding_window=sliding,
@@ -210,19 +237,24 @@ def _attn_block(blk, cfg: ModelConfig, x, pos, ctx: RunCtx, *, sliding: int, cau
         kv_range_chunking=ctx.kv_range_chunking and causal,
     )
     x = x + h
-    h = cm.rms_norm(x, blk["ln2"], cfg.norm_eps)
-    return x + cm.ffn(blk["ffn"], cfg, h)
+    h, aux = _mlp(blk, cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps), ctx.mesh)
+    return x + h, aux
 
 
 def _transformer_unit_fwd(cfg, unit, x, pos, ctx: RunCtx, layout):
+    """One unit: (x, its blocks' aux summed from 0 in block order)."""
     causal = not cfg.encoder_only
+    aux = 0.0
     if layout["locals"]:
         for i in range(layout["locals"]):
-            x = _attn_block(_at(unit["local"], i), cfg, x, pos, ctx,
-                            sliding=cfg.sliding_window, causal=causal)
-        return _attn_block(unit["global"], cfg, x, pos, ctx, sliding=0, causal=causal)
-    return _attn_block(unit["block"], cfg, x, pos, ctx, sliding=cfg.sliding_window,
+            x, a = _attn_block(_at(unit["local"], i), cfg, x, pos, ctx,
+                               sliding=cfg.sliding_window, causal=causal)
+            aux = aux + a
+        x, a = _attn_block(unit["global"], cfg, x, pos, ctx, sliding=0, causal=causal)
+        return x, aux + a
+    x, a = _attn_block(unit["block"], cfg, x, pos, ctx, sliding=cfg.sliding_window,
                        causal=causal)
+    return x, aux + a
 
 
 # ---------------------------------------------------------------------------
@@ -262,17 +294,21 @@ def _head(params, cfg: ModelConfig, x) -> torch.Tensor:
 def forward(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. ``batch``: ``tokens`` [B, S] (``positions``
     [3, B, S] for M-RoPE) or ``frames`` [B, S, D]. Returns (logits
-    [B,S,V] f32, aux loss; 0 without experts)."""
+    [B,S,V] f32, the MoE blocks' aux loss summed in the reference's
+    order; 0 without experts)."""
     layout = _supported_layout(cfg)
     x, pos = _embed_in(params, cfg, batch)
     n_units = layout["n_units"] if ctx.n_units_override is None else ctx.n_units_override
+    aux = 0.0
     for u in range(min(n_units, layout["n_units"])):
-        x = _transformer_unit_fwd(cfg, _at(params["units"], u), x, pos, ctx, layout)
+        x, a = _transformer_unit_fwd(cfg, _at(params["units"], u), x, pos, ctx, layout)
+        aux = aux + a
     if layout["tail_locals"] and (ctx.n_units_override is None or ctx.n_units_override > 0):
         for i in range(layout["tail_locals"]):
-            x = _attn_block(_at(params["tail_local"], i), cfg, x, pos, ctx,
-                            sliding=cfg.sliding_window, causal=not cfg.encoder_only)
-    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _attn_block(_at(params["tail_local"], i), cfg, x, pos, ctx,
+                               sliding=cfg.sliding_window, causal=not cfg.encoder_only)
+            aux = aux + a
+    return _head(params, cfg, x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
 def prefill(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> torch.Tensor:
@@ -331,36 +367,39 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache,
         return _head(params, cfg, x)[:, 0], cache
     for u in range(layout["n_units"]):
         cache_u = {k: _at(v, u) for k, v in cache.items() if k != "tail_local"}
-        x, _ = _transformer_unit_decode(cfg, _at(params["units"], u), x, pos, cache_u, layout)
+        x, _ = _transformer_unit_decode(cfg, _at(params["units"], u), x, pos, cache_u, layout,
+                                        ctx)
     for i in range(layout["tail_locals"]):
-        x = _local_decode(cfg, _at(params["tail_local"], i), x, pos, cache["tail_local"], i)
+        x = _local_decode(cfg, _at(params["tail_local"], i), x, pos, cache["tail_local"], i,
+                          ctx)
     return _head(params, cfg, x)[:, 0], cache
 
 
-def _local_decode(cfg, blk, x, pos, ring, i):
+def _local_decode(cfg, blk, x, pos, ring, i, ctx: RunCtx):
     """One sliding-window layer's decode over ring ``i`` of ``ring``."""
     h = cm.rms_norm(x, blk["ln1"], cfg.norm_eps)
     x = x + _ring_attention_decode(blk["attn"], cfg, h, pos, ring["k"][i], ring["v"][i],
                                    ring["pos"][i])[0]
-    return x + cm.ffn(blk["ffn"], cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps))
+    return x + _mlp(blk, cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps), ctx.mesh)[0]
 
 
-def _kv_decode(cfg, blk, x, pos, kv, sliding_window=0):
+def _kv_decode(cfg, blk, x, pos, kv, ctx: RunCtx, sliding_window=0):
     """One layer's decode over its KV cache ``kv``."""
     h = cm.rms_norm(x, blk["ln1"], cfg.norm_eps)
     x = x + cm.attention_decode(blk["attn"], cfg, h, pos, kv["k"], kv["v"],
                                 sliding_window=sliding_window)[0]
-    return x + cm.ffn(blk["ffn"], cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps))
+    return x + _mlp(blk, cfg, cm.rms_norm(x, blk["ln2"], cfg.norm_eps), ctx.mesh)[0]
 
 
-def _transformer_unit_decode(cfg, unit, x, pos, cache_u, layout):
+def _transformer_unit_decode(cfg, unit, x, pos, cache_u, layout, ctx: RunCtx):
     """One unit's decode over its cache views, written in place. Returns
     (x, cache_u)."""
     if layout["locals"]:
         for i in range(layout["locals"]):
-            x = _local_decode(cfg, _at(unit["local"], i), x, pos, cache_u["local"], i)
-        return _kv_decode(cfg, unit["global"], x, pos, cache_u["global"]), cache_u
-    return _kv_decode(cfg, unit["block"], x, pos, cache_u["block"], cfg.sliding_window), cache_u
+            x = _local_decode(cfg, _at(unit["local"], i), x, pos, cache_u["local"], i, ctx)
+        return _kv_decode(cfg, unit["global"], x, pos, cache_u["global"], ctx), cache_u
+    return _kv_decode(cfg, unit["block"], x, pos, cache_u["block"], ctx,
+                      cfg.sliding_window), cache_u
 
 
 def _ring_attention_decode(p, cfg, x, pos, k_cache, v_cache, pos_cache):

@@ -33,6 +33,7 @@ from repro_torch import configs as tcfgs
 from repro_torch.config import SHAPES, applicable_shapes, shape_by_name
 from repro_torch.models import (
     RunCtx,
+    VirtualMesh,
     decode_step,
     forward,
     init_cache,
@@ -48,7 +49,10 @@ ARCHS = rcfgs.arch_names()
 # the transformer-unit families without experts: this slice of the port
 SERVED = ["gemma3-27b", "hubert-xlarge", "internlm2-20b", "phi3-mini-3.8b",
           "qwen1.5-4b", "qwen2-vl-7b"]
-LATER = ["kimi-k2-1t-a32b", "olmoe-1b-7b", "xlstm-1.3b", "zamba2-2.7b"]
+# the MoE family: through RunCtx() (the dense path) and VirtualMesh(data=2)
+MOE = ["kimi-k2-1t-a32b", "olmoe-1b-7b"]
+LATER = ["xlstm-1.3b", "zamba2-2.7b"]
+EP_CTX = 2                    # the data axis of the VirtualMesh cases
 TOL32 = dict(rtol=1e-4, atol=1e-4)
 # bf16 logits. The reference is compiled with XLA's excess precision off
 # (``RefJit``), so that each jnp op rounds to bf16 as its semantics say and
@@ -162,34 +166,53 @@ def test_registry_and_shapes():
 
 
 # ---------------------------------------------------------------- forward / prefill
+def ep_ctx(drops, **kw):
+    """``RunCtx`` over ``VirtualMesh(data=EP_CTX)`` logging dropped slots."""
+    return RunCtx(mesh=VirtualMesh(EP_CTX, drop_log=drops), **kw)
+
+
 def check_forward_and_prefill(arch, dtype):
+    """The port's forward and prefill against the reference's forward; an
+    MoE config also through ``VirtualMesh(data=2)``, where no slot drops at
+    the default capacity, against the same (dense) reference. The EP aux
+    is the mean of the ranks' own (``test_torch_moe.py`` holds it against
+    the reference's EP layer), not the dense path's."""
     cfg = rcfgs.get_smoke_config(arch)
     if dtype == "float32":
         cfg = fp32(cfg)
     tol = TOL32 if dtype == "float32" else BF16_TOL
     tree = ref_tree(arch, dtype)
     batch = np_batch(cfg)
-    want, _ = ref_forward(cfg, RCTX)(tree, to_jax(batch))
+    want, want_aux = ref_forward(cfg, RCTX)(tree, to_jax(batch))
     want = np.asarray(want)
     params = params_from_reference(cfg, tree, device="cpu")
-    got, aux = forward(params, cfg, to_torch(batch), CTX)
-    assert got.dtype == torch.float32 and got.shape == want.shape
-    assert float(aux) == 0.0
-    np.testing.assert_allclose(got.numpy(), want, **tol)
-    # the reference's prefill is its forward's last position
-    last = prefill(params, cfg, to_torch(batch), CTX)
-    assert torch.equal(last, got[:, -1])
-    np.testing.assert_allclose(last.numpy(), want[:, -1], **tol)
+    drops = []
+    ctxs = [CTX] + ([ep_ctx(drops, q_chunk=16)] if cfg.is_moe else [])
+    for ctx in ctxs:
+        got, aux = forward(params, cfg, to_torch(batch), ctx)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert aux.dtype == torch.float32 and aux.shape == ()
+        if ctx.mesh is None:
+            np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5, atol=1e-6)
+        else:
+            assert np.isfinite(float(aux)) and float(aux) > 0
+        np.testing.assert_allclose(got.numpy(), want, **tol)
+        # the reference's prefill is its forward's last position
+        last = prefill(params, cfg, to_torch(batch), ctx)
+        assert torch.equal(last, got[:, -1])
+        np.testing.assert_allclose(last.numpy(), want[:, -1], **tol)
+    assert (float(want_aux) > 0) == cfg.is_moe
+    assert len(drops) == 2 * cfg.num_layers * cfg.is_moe and all(int(d.sum()) == 0 for d in drops)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", [a for a in SERVED if a != "gemma3-27b"])
+@pytest.mark.parametrize("arch", [a for a in SERVED if a != "gemma3-27b"] + MOE)
 def test_forward_and_prefill_match_reference(arch, dtype):
     check_forward_and_prefill(arch, dtype)
 
 
 # ---------------------------------------------------------------- init / carry-over
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + MOE)
 def test_init_params_has_the_reference_tree(arch):
     cfg = rcfgs.get_smoke_config(arch)
     want = jax.eval_shape(lambda k: r_init_params(cfg, k), jax.random.PRNGKey(0))
@@ -227,6 +250,32 @@ def test_init_params_is_seeded_and_spread_as_the_reference():
     assert float(a["final_norm"].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_is_seeded_and_spread_as_the_reference(arch):
+    """The MoE subtree drawn after the attention, as the reference's
+    ``init_moe``: an f32 router (fan-in d), experts in the config's dtype
+    with fan-in on axis 1 (d for w1 / w3, d_ff for w2)."""
+    cfg = rcfgs.get_smoke_config(arch)
+    a = init_params(cfg, 3, device="cpu")
+    b = init_params(cfg, 3, device="cpu")
+    c = init_params(cfg, 4, device="cpu")
+    moe = a["units"]["block"]["moe"]
+    assert "ffn" not in a["units"]["block"]
+    assert torch.equal(moe["w1"], b["units"]["block"]["moe"]["w1"])
+    assert not torch.equal(moe["w1"], c["units"]["block"]["moe"]["w1"])
+    assert moe["router"].dtype == torch.float32 and moe["w2"].dtype == torch.bfloat16
+    std = 0.8796                  # a unit normal truncated to [-2, 2]
+    for leaf, fan_in in ((moe["router"], cfg.d_model), (moe["w1"], cfg.d_model),
+                         (moe["w3"], cfg.d_model), (moe["w2"], cfg.d_ff)):
+        x = leaf.float()
+        want = std / np.sqrt(fan_in)
+        assert abs(float(x.std()) / want - 1) < 0.05, (tuple(leaf.shape), float(x.std()), want)
+        assert float(x.abs().max()) <= 2.0 / np.sqrt(fan_in) * 1.01
+        assert abs(float(x.mean())) < 4 * want / np.sqrt(x.numel())     # 4 σ of the mean
+    assert not torch.equal(moe["w1"][0, 0], moe["w1"][0, 1])          # experts drawn apart
+    assert not torch.equal(moe["w1"][0], moe["w1"][1])                # units drawn apart
+
+
 # ---------------------------------------------------------------- boundaries
 def test_entry_points_need_cuda_by_default(monkeypatch):
     cfg = tcfgs.get_smoke_config("qwen1.5-4b")
@@ -239,12 +288,14 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_reference(cfg, tree)
     assert init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(tcfgs.get_smoke_config("olmoe-1b-7b"), 0)
 
 
 @pytest.mark.parametrize("arch", LATER)
 def test_later_families_raise_not_implemented(arch):
     cfg = tcfgs.get_smoke_config(arch)
-    slice_name = "MoE" if cfg.is_moe else "recurrent"
+    slice_name = "recurrent"
     ref = jax.device_get(jax.eval_shape(
         lambda k: r_init_params(rcfgs.get_smoke_config(arch), k), jax.random.PRNGKey(0)))
     tok = torch.zeros(2, dtype=torch.int64)
@@ -269,6 +320,17 @@ def test_runctx_mesh_and_head_sharding_raise():
         RunCtx(shard_heads=True)
     assert RunCtx(q_chunk=8, rec_chunk=4, unroll_chunks=True, kv_range_chunking=True,
                   n_units_override=1).q_chunk == 8
+
+
+def test_runctx_takes_a_virtual_mesh():
+    assert RunCtx(mesh=VirtualMesh(4)).mesh.shape == {"data": 4, "model": 1}
+    with pytest.raises(NotImplementedError, match="one card"):
+        RunCtx(mesh=VirtualMesh(2), shard_heads=True)
+    cfg = fp32(tcfgs.get_smoke_config("olmoe-1b-7b"))
+    params = init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="batch 3"):
+        forward(params, cfg, {"tokens": torch.zeros((3, 4), dtype=torch.long)},
+                RunCtx(mesh=VirtualMesh(2)))
 
 
 def test_models_and_configs_import_without_jax_or_repro():
@@ -305,3 +367,22 @@ def test_cuda_full_width_forward_matches_cpu():
     got, _ = forward(params, cfg, {"tokens": toks.cuda()})
     want, _ = forward(cpu, cfg, {"tokens": toks})
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_olmoe_full_width_forward_matches_cpu():
+    """OLMoE-1B-7B at its published width (64 experts, top-8), 2 layers,
+    fp32: the card's logits and aux against the CPU's on the same params
+    (TF32 off) at 1e-3, through the dense path and ``VirtualMesh(2)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = fp32(tcfgs.get_config("olmoe-1b-7b")).replace(num_layers=2)
+    params = init_params(cfg, 0, device="cuda")
+    cpu = tlm.map_tree(params, lambda t: t.cpu())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 64)))
+    for ctx in (RunCtx(), RunCtx(mesh=VirtualMesh(2))):
+        got, aux = forward(params, cfg, {"tokens": toks.cuda()}, ctx)
+        want, want_aux = forward(cpu, cfg, {"tokens": toks}, ctx)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-3)

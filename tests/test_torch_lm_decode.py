@@ -31,11 +31,12 @@ from repro_torch.models import (
     init_params,
     params_from_reference,
 )
-from test_torch_lm import BF16_TOL, SERVED, TOL32, RefJit, fp32, np32, ref_tree
+from test_torch_lm import BF16_TOL, MOE, SERVED, TOL32, RefJit, ep_ctx, fp32, np32, ref_tree
 
 # InternLM2's smoke config is the GQA case (8 query heads over 2 KV heads);
-# Qwen2-VL's decodes with M-RoPE positions broadcast to [3, B]
-DECODE = ["internlm2-20b", "phi3-mini-3.8b", "qwen1.5-4b", "qwen2-vl-7b"]
+# Qwen2-VL's decodes with M-RoPE positions broadcast to [3, B]; the MoE
+# configs decode through RunCtx() and VirtualMesh(data=2) (Kimi K2's GQA)
+DECODE = ["internlm2-20b", "phi3-mini-3.8b", "qwen1.5-4b", "qwen2-vl-7b"] + MOE
 B, MAX_LEN, PRIME, STEPS = 2, 20, 3, 12
 
 
@@ -93,14 +94,20 @@ def check_decode_matches_reference(arch, dtype):
     for t in range(PRIME):
         _, cache = step(tree, toks[:, t], t + offset, cache)
     params = params_from_reference(cfg, tree, device="cpu")
-    tcache = cache_from_reference(cfg, jax.device_get(cache), device="cpu")
+    drops = []
+    ctxs = [RunCtx()] + ([ep_ctx(drops)] if cfg.is_moe else [])
+    tcaches = [cache_from_reference(cfg, jax.device_get(cache), device="cpu") for _ in ctxs]
     for t in range(PRIME, PRIME + STEPS):
         want, cache = step(tree, toks[:, t], t + offset, cache)
-        got, tcache = decode_step(params, cfg, torch.from_numpy(toks[:, t]),
-                                  torch.from_numpy(t + offset), tcache)
-        assert got.dtype == torch.float32 and tuple(got.shape) == (B, cfg.vocab_size)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=f"step {t}", **tol)
-    assert_trees_close(tcache, jax.device_get(cache), tol, f"{arch} cache")
+        for ctx, tcache in zip(ctxs, tcaches):
+            got, _ = decode_step(params, cfg, torch.from_numpy(toks[:, t]),
+                                 torch.from_numpy(t + offset), tcache, ctx)
+            assert got.dtype == torch.float32 and tuple(got.shape) == (B, cfg.vocab_size)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), err_msg=f"step {t}",
+                                       **tol)
+    for tcache in tcaches:
+        assert_trees_close(tcache, jax.device_get(cache), tol, f"{arch} cache")
+    assert all(int(d.sum()) == 0 for d in drops)        # B = ep: one token a rank
 
 
 def check_teacher_forced_decode_equals_forward(arch, S=12):
@@ -110,16 +117,21 @@ def check_teacher_forced_decode_equals_forward(arch, S=12):
     cfg = decode_cfg(arch, "float32")
     params = init_params(cfg, 11, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, size=(B, S)))
-    full, _ = forward(params, cfg, {"tokens": toks}, RunCtx(q_chunk=8))
-    cache = init_cache(cfg, B, S, device="cpu")
-    leaves = jax.tree.leaves(cache)
-    for t in range(S):
-        lg, out = decode_step(params, cfg, toks[:, t], torch.full((B,), t), cache)
-        assert all(a is b for a, b in zip(jax.tree.leaves(out), leaves))      # in place
-        np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), err_msg=f"pos {t}", **TOL32)
+    drops = []
+    for mesh in [None] + ([ep_ctx(drops).mesh] if cfg.is_moe else []):
+        full, _ = forward(params, cfg, {"tokens": toks}, RunCtx(q_chunk=8, mesh=mesh))
+        cache = init_cache(cfg, B, S, device="cpu")
+        leaves = jax.tree.leaves(cache)
+        for t in range(S):
+            lg, out = decode_step(params, cfg, toks[:, t], torch.full((B,), t), cache,
+                                  RunCtx(mesh=mesh))
+            assert all(a is b for a, b in zip(jax.tree.leaves(out), leaves))      # in place
+            np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), err_msg=f"pos {t}",
+                                       **TOL32)
+    assert all(int(d.sum()) == 0 for d in drops)
 
 
-@pytest.mark.parametrize("arch", [a for a in SERVED if a != "gemma3-27b"])
+@pytest.mark.parametrize("arch", [a for a in SERVED if a != "gemma3-27b"] + MOE)
 def test_init_cache_tree_equals_the_reference(arch):
     check_cache_tree(arch)
 
