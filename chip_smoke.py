@@ -38,6 +38,13 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    the int8 and top-K kernels must launch while the fp32 distance kernel
    and every plain version stay at 0.
 
+4b. The whole-mesh step (``spmd_search``): one 128-query batch through
+    ``build_spmd_inputs`` and ``make_spmd_search`` over
+    ``VirtualMesh(data=2, model=2)`` (every row of both shards scanned in
+    256-row chunks), fp32 and int8 (K' = 40 from τ0 = +inf, then an exact
+    fp32 re-rank), each against the oracle rows (scores at 1e-3, ids but
+    for ties); the tier's distance kernel and the top-K kernel launch.
+
 After each tier and mesh, one more 128-query batch is served with the
 ring's top-K call wrapped (``survivor_split``): how many candidates per
 (row, launch) lie below the row's K-th score. The profile lines give the
@@ -104,7 +111,7 @@ The kernel checks of phase 2 also hold the top-K kernel's route 2 (K in
 {320, 512, 1024, 4096} × C in {256, 4096, 8192}, the merge at k = 300) and
 route 3 (K in {12289, 16384, 20000} × C in {256, 4096, 12289}, and the
 served shapes) bit for bit, and the distance kernel's bf16-row route at the
-f32 route's rule; phase 2's timing covers every route. Each of phases 3–16
+f32 route's rule; phase 2's timing covers every route. Each of phases 3–20
 resets the launch counts before it and reads them after it.
 
 13-16. The serving plane (``serve_plane``) on a plane of the index as one
@@ -151,7 +158,22 @@ resets the launch counts before it and reads them after it.
     params): both paths' logits finite and equal where no slot dropped.
     One ``{"lm_moe": ...}`` line, with the bounds by path (prefill: expert
     rows E · B · S dense, E · cap_e on EP, B · S · k routed).
-20. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+20. The recurrent families (``serve_lm_recurrent``); no hand-written
+    kernel, launch counts 0. (a) xLSTM-1.3B at 8 layers (7 mLSTM + 1
+    sLSTM) and Zamba2-2.7B at 6 (6 Mamba2 and the shared block), published
+    widths, fp32 (``lm_recurrent_fp32``): card against CPU and decode
+    against ``forward`` over 2 × 64 tokens in chunks of 16, at 1e-3 in
+    units of the logits' RMS (at least 1; ``logit_scale``). (b) Each as
+    published in bf16 (``lm_recurrent``): the ``lm`` run of phase 18 with
+    the fill over the prompts' first 256 tokens, held against a prefill of
+    those by ``recurrent_fill_rule`` (max |Δ| ≤ 0.2 in units of the
+    logits' RMS, or the fill no further than 1.5× prefill's distance from
+    the same weights' fp32 ``forward``; a row whose argmax moves must be a
+    near tie); 8 steps at the end of a fresh 4224-position cache; one
+    sLSTM layer's prefill time. One ``{"lm_recurrent": ...}`` line with
+    the bounds (bf16 GEMMs at 989 TFLOP/s plus the f32 chunk work at 67;
+    a step reads the weights and reads and writes the recurrent state).
+21. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -1221,6 +1243,97 @@ def serve_huge_k(dev, smi, data, q8):
     return counts
 
 
+def spmd_search(dev, smi, index, q, want_s, want_i, V=2, B=2, chunk=256):
+    """Phase 4b (``spmd_search``): one query batch through the whole-mesh
+    step the reference's ``examples/distributed_search.py`` drives:
+    ``preassign`` on a load-aware plan, ``build_spmd_inputs`` (moved to the
+    card, where the reference places them with ``input_shardings``) and
+    ``make_spmd_search`` over ``VirtualMesh(data=V, model=B)``, which scans
+    every row of each shard (no probe gather). fp32 from the prewarmed τ0;
+    int8 as the example's ``--int8``: stage 1 keeps K' = k · rerank_factor
+    from τ0 = +inf, an exact fp32 re-rank of those rows gives the top-k.
+    Each is held against the oracle rows (``want_s``, ``want_i``) by the
+    example's rule: finite scores at rtol = atol = 1e-3, ids except across
+    ties. The tier's distance kernel and the top-K kernel must launch, no
+    plain version may run. Returns the launch counts."""
+    import torch
+
+    from repro_torch.core import PartitionPlan, assign_queries, preassign, prewarm_tau
+    from repro_torch.core.pipeline import SpmdConfig, build_spmd_inputs, make_spmd_search
+    from repro_torch.core.router import load_aware_assignment, ring_offsets
+    from repro_torch.kernels import ops
+    from repro_torch.virtual_mesh import VirtualMesh
+
+    t_phase = time.perf_counter()
+    k = want_s.shape[1]
+    plan = PartitionPlan(v_shards=V, d_blocks=B,
+                         cluster_to_shard=load_aware_assignment(index.sizes, None, V),
+                         ring_offsets=ring_offsets(V, B))
+    corpus = preassign(index, plan, pad_to=chunk)
+    probes = assign_queries(index, q)
+    x_host, xn_host = index.x.numpy(), index.xnorm2.cpu().numpy()
+    order = np.argsort(index.ids, kind="stable")
+    sids = index.ids[order]
+    total = {}
+    for precision in ("fp32", "int8"):
+        int8 = precision == "int8"
+        kp = k * index.cfg.rerank_factor if int8 else k
+        scfg = SpmdConfig(v_shards=V, d_blocks=B, qb=len(q), cap=corpus.cap, dim=index.dim,
+                          nprobe=probes.shape[1], k=kp, chunk=chunk, precision=precision)
+        tau0 = (np.full((len(q),), np.inf, np.float32) if int8
+                else prewarm_tau(index, q, probes, k, index.cfg.prewarm_samples))
+        t0 = time.perf_counter()
+        arrays = {n: a.to(dev) for n, a in
+                  build_spmd_inputs(index, corpus, q, scfg, probes, tau0).items()}
+        inputs_s = time.perf_counter() - t0
+        step = make_spmd_search(scfg, VirtualMesh(V, model=B))
+        operands = [arrays[n] for n in ("x_blocks", "xn2_blocks", "cluster_ids", "row_ids")]
+        operands += [arrays["scale2"]] if int8 else []
+        operands += [arrays["queries"], arrays["probes"], arrays["tau0"]]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, ids, stats = step(*operands)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        dist, other = (("int8_partial_distance_update", "partial_distance_update") if int8
+                       else ("partial_distance_update", "int8_partial_distance_update"))
+        assert counts[dist] > 0 and counts["running_topk_update"] > 0, counts
+        assert counts[other] == 0, counts
+        assert not any(counts[n] for n in counts if n.endswith("_ref")), counts
+        scores, ids, stats = scores.cpu().numpy(), ids.cpu().numpy(), stats.cpu().numpy()
+        if int8:
+            # stage 2: the exact fp32 re-rank of the K' survivors (the example's)
+            valid = np.isfinite(scores) & (ids >= 0)
+            rows = order[np.searchsorted(sids, np.where(valid, ids, sids[0]))]
+            d = (np.sum(q * q, axis=1)[:, None]
+                 - 2.0 * np.einsum("md,mkd->mk", q, x_host[rows]) + xn_host[rows])
+            d = np.where(valid, d.astype(np.float32), np.inf)
+            o = np.argsort(d, axis=1, kind="stable")[:, :k]
+            scores, ids = np.take_along_axis(d, o, axis=1), np.take_along_axis(ids, o, axis=1)
+            ids[~np.isfinite(scores)] = -1
+        finite = np.isfinite(want_s)
+        assert np.array_equal(np.isfinite(scores), finite), f"{precision}: valid pattern"
+        np.testing.assert_allclose(scores[finite], want_s[finite], rtol=1e-3, atol=1e-3)
+        tie_rows = 0
+        for r in np.nonzero((ids.astype(np.int64) != want_i).any(axis=1))[0]:
+            assert np.allclose(np.sort(scores[r]), np.sort(want_s[r]), rtol=1e-3, atol=1e-3), (
+                f"{precision} row {r}: {ids[r]} vs {want_i[r]}")
+            tie_rows += 1
+        log(phase="spmd_search", precision=precision, mesh=f"{V}x{B}", nq=len(q), k=k,
+            stage1_k=kp, cap=corpus.cap, chunk=chunk, inputs_s=inputs_s,
+            wall_ms=wall_s * 1e3, tile_skip_frac=float(stats[0]) / max(int(stats[1]), 1),
+            max_abs_err=float(np.abs(scores[finite] - want_s[finite]).max()),
+            rows_differing_at_ties=tie_rows, launches=counts, card=smi)
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        del arrays, operands
+        torch.cuda.empty_cache()
+    log(phase="spmd_search_path", seconds=time.perf_counter() - t_phase, counts=total, card=smi)
+    return total
+
+
 def device_mb():
     """The card's allocated MB, after the queued work."""
     import torch
@@ -1926,6 +2039,23 @@ def profiled(fn):
     return out, busy_ns / 1e6, wall_ms
 
 
+def aten_ops(fn):
+    """(``fn()``, the ATen operators it dispatched): the host's share of a
+    step, every launch and view it issues, counted by a dispatch mode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as count:
+        out = fn()
+    return out, count.n
+
+
 def idle_share(busy_ms, wall_ms):
     return 1.0 - busy_ms / wall_ms if busy_ms > 0 else "not measured"
 
@@ -2360,9 +2490,11 @@ RING_F64_TOL = 1e-2           # ring decode (fp32) against forward in f64: 10× 
 
 
 def _leaves(tree, name=""):
-    """(key, leaf) pairs of a nested dict."""
+    """(key, leaf) pairs of a nested dict; a tuple's leaves under its key."""
     if isinstance(tree, dict):
         return [kv for k, v in tree.items() for kv in _leaves(v, k)]
+    if isinstance(tree, tuple):
+        return [kv for v in tree for kv in _leaves(v, name)]
     return [(name, tree)]
 
 
@@ -2477,34 +2609,84 @@ def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
     return errs, witness
 
 
-def lm_bounds(cfg, params, B, S, attended, expert_rows=None):
-    """(prefill FLOPs, decode bytes read per step at ``attended`` positions):
-    2 · N · tokens over the weights that multiply (the embedding table is a
-    lookup unless it is the tied head) plus the causal attention's
-    QK^T and PV over the positions each query attends; a decode step reads
-    those weights once, B embedding rows, and the attended keys and values
-    of every layer. An MoE config's expert weights multiply
-    ``expert_rows`` rows a layer, summed over its experts: B · S · E on
-    the dense path (every expert for every token, the default), E · cap_e
-    on the EP path, B · S · k for the routed slots alone; its router
-    multiplies every token."""
+def lm_bounds(cfg, params, B, S, attended, expert_rows=None, state_bytes=0):
+    """(prefill FLOPs of the GEMMs and attention, decode bytes read per step
+    at ``attended`` positions): 2 · N · tokens over the weights that
+    multiply (the embedding table is a lookup unless it is the tied head)
+    plus the causal attention's QK^T and PV over the positions each query
+    attends; a decode step reads those weights once, B embedding rows, and
+    the attended keys and values of every attention layer. An MoE config's
+    expert weights multiply ``expert_rows`` rows a layer, summed over its
+    experts: B · S · E on the dense path (every expert for every token, the
+    default), E · cap_e on the EP path, B · S · k for the routed slots
+    alone; its router multiplies every token. The recurrent layouts:
+    attention runs in every transformer layer, in each Zamba2 unit (the
+    shared block, whose weights multiply once a unit and are read once a
+    step), in no xLSTM layer; sLSTM's ``r`` and Mamba2's ``conv`` work in
+    f32 and are counted by ``recurrent_f32_flops``; a decode step reads and
+    writes the recurrent state (``state_bytes``) once."""
+    from repro_torch.models import unit_layout
+
+    layout = unit_layout(cfg)
     units = [kv for k in ("units", "tail_local") if k in params for kv in _leaves(params[k])]
+    shared = _leaves(params["shared"]) if "shared" in params else []
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     experts = {"w1", "w2", "w3"} if cfg.is_moe else set()
-    n_mm = sum(t.numel() for k, t in units
-               if (k.startswith("w") and k not in experts) or k == "router") + head.numel()
+
+    def multiplying(leaves):
+        return sum(t.numel() for k, t in leaves
+                   if (k.startswith("w") and k not in experts) or k == "router")
+
+    n_mm = multiplying(units) + layout["n_units"] * multiplying(shared) + head.numel()
     E = max(cfg.moe.num_experts, 1)
     per_expert = sum(t.numel() for k, t in units if k in experts) / E    # all layers
     rows = B * S * E if expert_rows is None else expert_rows
-    units = [t for _, t in units]
-    layers, H, KV, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    weights = [t for _, t in units + shared]
+    layers = {"transformer": cfg.num_layers, "zamba": layout["n_units"],
+              "xlstm": 0}[layout["kind"]]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn_flops = layers * 4 * B * H * hd * S * (S + 1) / 2
-    weight_bytes = sum(t.numel() * t.element_size() for t in units) + (
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights) + (
         head.numel() * head.element_size())
     embed_rows = 0 if cfg.tie_embeddings else B * cfg.d_model * params["embed"].element_size()
     kv_bytes = layers * 2 * B * attended * KV * hd * params["embed"].element_size()
     return (2 * n_mm * B * S + 2 * per_expert * rows + attn_flops,
-            weight_bytes + embed_rows + kv_bytes)
+            weight_bytes + embed_rows + kv_bytes + 2 * state_bytes)
+
+
+def recurrent_f32_flops(cfg, B, S, chunk):
+    """The f32 work of a recurrent prefill of B × S tokens in chunks of
+    ``chunk``: per mLSTM layer the chunk bodies' products (q·kᵀ, its
+    weighted sums over v and k: 6 · B · H · S · c · hd; the state read by q
+    and rewritten: 4 · B · H · S · hd²) and per sLSTM layer h · r (2 · B ·
+    S · d · 4 · hd); per Mamba2 layer the SSD chunk's C · Bᵀ, its sum over
+    x and the state's read and rewrite (2 · B · S · c · (ds + Hm · dh) +
+    4 · B · Hm · S · dh · ds) and the causal conv (2 · B · S · W · (di +
+    2 · ds)); 0 for a transformer."""
+    from repro_torch.models import unit_layout
+
+    layout = unit_layout(cfg)
+    c, d = min(chunk, S), cfg.d_model
+    if layout["kind"] == "xlstm":
+        H, m = cfg.num_heads, layout["mlstm_per_unit"]
+        hd = (cfg.ssm_expand or 2) * d // H
+        mlstm = 6 * B * H * S * c * hd + 4 * B * H * S * hd * hd
+        slstm = 2 * B * S * d * 4 * (d // H) if layout["unit_layers"] > m else 0
+        return layout["n_units"] * (m * mlstm + slstm)
+    if layout["kind"] == "zamba":
+        di, ds = cfg.ssm_expand * d, cfg.ssm_state
+        Hm, dh = di // 64, 64
+        ssd = 2 * B * S * c * (ds + Hm * dh) + 4 * B * Hm * S * dh * ds
+        conv = 2 * B * S * cfg.ssm_conv * (di + 2 * ds)
+        return layout["n_units"] * layout["mamba_per_unit"] * (ssd + conv)
+    return 0
+
+
+def state_bytes_of(cache):
+    """Bytes of a cache's recurrent states (its mLSTM, sLSTM and Mamba2
+    tuples); 0 for a transformer's KV cache."""
+    return sum(t.numel() * t.element_size() for key in ("mlstm", "slstm", "mamba")
+               for t in cache.get(key, ()))
 
 
 class RouteLog:
@@ -2592,23 +2774,28 @@ def moe_rule(got, want, routes_got, routes_want, what):
                 median_gap=median_gap)
 
 
-def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False):
+def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False, fill=None,
+              rule=None):
     """Phase 18b (``lm``): ``cfg`` served in its own bf16 from the port's
     seeded init: B prompts of S tokens through ``prefill`` (once to warm,
     once timed); a cache of ``max_len`` filled by teacher-forced
-    ``decode_step`` over the prompts, whose last logits are held against
-    ``prefill``'s (max |Δ| ≤ FILL_MAX_ABS, argmax agreement ≥
+    ``decode_step`` over the prompts' first ``fill`` tokens (all S by
+    default), whose last logits are held against ``prefill``'s over the
+    same tokens (max |Δ| ≤ FILL_MAX_ABS, argmax agreement ≥
     FILL_ARGMAX_AGREE; an MoE model by ``moe_rule``, the routes of the
-    warm prefill and the last fill step recorded); then ``steps`` greedy
+    warm prefill and the last fill step recorded; ``rule(params, tokens,
+    fill logits, prefill logits)``, when given, holds them instead and
+    returns its numbers); then ``steps`` greedy
     steps, every logit finite;
     then 8 more steps under the profiler (idle share). On the card only.
     Returns the numbers of the ``lm`` line; with ``keep``, also the params,
     prompts, prefill's last logits and a copy of the filled cache."""
     import torch
 
-    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.models import RunCtx, decode_step, init_cache, init_params, prefill
     from repro_torch.models.lm import map_tree
 
+    fill = S if fill is None else fill
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(1)
@@ -2627,34 +2814,40 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
 
+    fill_last = last if fill == S else prefill(params, cfg, {"tokens": prompts[:, :fill]})
     cache = init_cache(cfg, B, max_len, device=dev)
     cache_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
     t0 = time.perf_counter()
-    for t in range(S - 1):
+    for t in range(fill - 1):
         decode_step(params, cfg, prompts[:, t], torch.full((B,), t, device=dev), cache)
     with RouteLog() as fill_routes:
-        lg, cache = decode_step(params, cfg, prompts[:, -1], torch.full((B,), S - 1, device=dev),
-                                cache)
+        lg, cache = decode_step(params, cfg, prompts[:, fill - 1],
+                                torch.full((B,), fill - 1, device=dev), cache)
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
     routing = None
-    if cfg.is_moe:
-        routing = moe_rule(lg, last, fill_routes.last_rows(B), prefill_routes.last_rows(B),
+    if rule is not None:
+        routing = rule(params, prompts[:, :fill], lg, fill_last)
+        fill_vs_prefill, argmax_agree = routing["max_abs"], routing["argmax_agree"]
+    elif cfg.is_moe:
+        routing = moe_rule(lg, fill_last, fill_routes.last_rows(B), prefill_routes.last_rows(B),
                            "fill against prefill")
         fill_vs_prefill, argmax_agree = routing["max_abs"], routing["argmax_agree"]
     else:
-        fill_vs_prefill = float((lg - last).abs().max())
-        argmax_agree = float((lg.argmax(-1) == last.argmax(-1)).float().mean())
-        assert bool(torch.isfinite(lg).all()) and bool(torch.isfinite(last).all())
+        fill_vs_prefill = float((lg - fill_last).abs().max())
+        argmax_agree = float((lg.argmax(-1) == fill_last.argmax(-1)).float().mean())
+        assert bool(torch.isfinite(lg).all()) and bool(torch.isfinite(fill_last).all())
         assert fill_vs_prefill <= FILL_MAX_ABS and argmax_agree >= FILL_ARGMAX_AGREE, (
             f"fill against prefill: max |Δ| {fill_vs_prefill}, argmax agreement "
             f"{argmax_agree}")
+    fill_max_abs_logit = float(fill_last.abs().max())
+    del fill_last
     filled = map_tree(cache, torch.clone) if keep else None
 
     tok, finite = lg.argmax(-1), torch.ones((), dtype=torch.bool, device=dev)
     t0 = time.perf_counter()
     for i in range(steps):
-        lg, cache = decode_step(params, cfg, tok, torch.full((B,), S + i, device=dev), cache)
+        lg, cache = decode_step(params, cfg, tok, torch.full((B,), fill + i, device=dev), cache)
         finite &= torch.isfinite(lg).all()
         tok = lg.argmax(-1)
     torch.cuda.synchronize()
@@ -2665,17 +2858,22 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False):
         nonlocal lg, cache
         t_ = tok
         for i in range(8):
-            lg, cache = decode_step(params, cfg, t_, torch.full((B,), S + steps + i, device=dev),
-                                    cache)
+            lg, cache = decode_step(params, cfg, t_,
+                                    torch.full((B,), fill + steps + i, device=dev), cache)
             t_ = lg.argmax(-1)
         return t_
 
     _, busy_ms, wall_ms = profiled(eight_steps)
+    (lg, cache), step_ops = aten_ops(lambda: decode_step(
+        params, cfg, lg.argmax(-1), torch.full((B,), fill + steps + 8, device=dev), cache))
     peak = torch.cuda.max_memory_allocated()
     assert bool(torch.isfinite(lg).all())
     flops, _ = lm_bounds(cfg, params, B, S, 0)          # the dense path: every expert
-    _, step_bytes = lm_bounds(cfg, params, B, S, S + (steps + 1) / 2)
-    prefill_bound_s = max(flops / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S)
+    state_bytes = state_bytes_of(cache)
+    _, step_bytes = lm_bounds(cfg, params, B, S, fill + (steps + 1) / 2, state_bytes=state_bytes)
+    f32_flops = recurrent_f32_flops(cfg, B, S, RunCtx().rec_chunk)
+    ops_s = flops / BF16_FLOP_PER_S + f32_flops / FP32_FLOP_PER_S
+    prefill_bound_s = max(ops_s, param_bytes / HBM_BYTES_PER_S)
     out = dict(
         model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
         dtype=cfg.dtype, batch=B, prompt=S, max_len=max_len, greedy_steps=steps,
@@ -2683,19 +2881,23 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False):
         peak_allocated_bytes=peak,
         prefill_ms=prefill_s * 1e3, prefill_tokens_per_s=B * S / prefill_s,
         prefill_flops=flops, prefill_bound_ms=prefill_bound_s * 1e3,
-        prefill_bound_by=("operations" if flops / BF16_FLOP_PER_S
-                          >= param_bytes / HBM_BYTES_PER_S else "bytes"),
-        fill_ms_per_step=fill_s / S * 1e3,
+        prefill_bound_by=("operations" if ops_s >= param_bytes / HBM_BYTES_PER_S
+                          else "bytes"),
+        fill_ms_per_step=fill_s / fill * 1e3, prefill_max_abs_logit=fill_max_abs_logit,
         fill_vs_prefill_max_abs=fill_vs_prefill, fill_vs_prefill_argmax_agree=argmax_agree,
         decode_ms_per_step=decode_s / steps * 1e3, decode_tokens_per_s=B * steps / decode_s,
         decode_bytes_per_step=step_bytes,
         decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3,
         decode_bound_by="bytes",
         idle_share_8_steps=idle_share(busy_ms, wall_ms), busy_ms_8_steps=busy_ms,
-        wall_ms_8_steps=wall_ms,
+        wall_ms_8_steps=wall_ms, decode_aten_ops_per_step=step_ops,
     )
     if routing is not None:
-        out["fill_vs_prefill_routing"] = routing
+        out["fill_vs_prefill_rule" if rule is not None else "fill_vs_prefill_routing"] = routing
+    if fill != S:
+        out["fill_tokens"] = fill
+    if f32_flops:
+        out.update(prefill_f32_flops=f32_flops, state_bytes=state_bytes)
     if keep:
         return out, dict(params=params, prompts=prompts, last=last, filled=filled)
     del params, cache, last, lg
@@ -2993,6 +3195,204 @@ def serve_lm_moe(dev, smi):
         card=smi)}, default=float), flush=True)
 
 
+REC_FILL = 256                # recurrent fill: the prompts' first 256 tokens (PERF.md §6)
+FILL_WITNESS_FACTOR = 1.5     # fill vs fp32 over prefill vs fp32: 1.06 measured (PERF.md §6)
+
+
+def logit_scale(want):
+    """The logits' RMS, at least 1: the unit in which the recurrent checks
+    hold a logit difference (1 for every model whose logits' RMS is below
+    1; xLSTM's tied N(0, 1) head gives an RMS near 40)."""
+    return max(1.0, float(want.float().pow(2).mean().sqrt()))
+
+
+def lm_close_scaled(got, want, what):
+    """``lm_close`` in units of ``logit_scale(want)``: (max |err|, max |err|
+    / max |want|, the scale)."""
+    s = logit_scale(want)
+    err, rel = lm_close(got / s, want / s, what)
+    return err * s, rel, s
+
+
+def recurrent_fill_rule(cfg):
+    """The fill rule of a recurrent model (``lm_served``'s ``rule``): both
+    logits finite; every row whose prefill top-two gap exceeds twice its
+    own max |Δ| (a row no such difference could flip) keeps its argmax; and
+    max |Δ| ≤ FILL_MAX_ABS in units of ``logit_scale``, or, failing that,
+    the fill no further from the same weights' fp32 ``forward`` than
+    FILL_WITNESS_FACTOR times prefill's distance from it. Returns the
+    numbers."""
+    import torch
+
+    from repro_torch.models import forward
+    from repro_torch.models.lm import map_tree
+
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+
+    def rule(params, tokens, got, want):
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
+        diff = (got - want).abs()
+        max_abs, scale = float(diff.max()), logit_scale(want)
+        top2 = want.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * diff.max(-1).values
+        agree = got.argmax(-1) == want.argmax(-1)
+        p32 = map_tree(params, lambda t: t.float() if t.is_floating_point() else t)
+        ref = forward(p32, cfg32, {"tokens": tokens})[0][:, -1]
+        del p32
+        fill_err, prefill_err = float((got - ref).abs().max()), float((want - ref).abs().max())
+        out = dict(max_abs=max_abs, logit_scale=scale, max_abs_in_scale=max_abs / scale,
+                   argmax_agree=float(agree.float().mean()), near_tie_rows=int((~clear).sum()),
+                   fill_vs_fp32_max_abs=fill_err, prefill_vs_fp32_max_abs=prefill_err,
+                   fill_vs_fp32_argmax_agree=float((got.argmax(-1) == ref.argmax(-1))
+                                                   .float().mean()),
+                   prefill_vs_fp32_argmax_agree=float((want.argmax(-1) == ref.argmax(-1))
+                                                      .float().mean()))
+        assert bool(agree[clear].all()), f"fill against prefill: a clear row's argmax moved: {out}"
+        assert (max_abs / scale <= FILL_MAX_ABS
+                or fill_err <= FILL_WITNESS_FACTOR * prefill_err), f"fill against prefill: {out}"
+        return out
+
+    return rule
+
+
+def lm_recurrent_fp32_checks(dev, xlstm, zamba, S=64, chunk=16):
+    """Phase 20a (``lm_recurrent_fp32``): xLSTM-1.3B and Zamba2-2.7B at
+    their published widths and one unit each (``xlstm``: 7 mLSTM + 1
+    sLSTM; ``zamba``: 6 Mamba2 and the shared block), fp32 with TF32 off,
+    B = 2 prompts of S tokens in chunks of ``chunk`` (several chunks and
+    the carried state): the card's ``forward`` against the CPU's on the
+    same params, and the card's teacher-forced ``decode_step`` against its
+    own ``forward``, each at LM_TOL in units of ``logit_scale`` (xLSTM's
+    tied N(0, 1) head puts its logits' RMS near 40, so an fp32 rounding
+    of 1e-5 of that scale is 4e-4 absolute). Returns {check: (max |err|,
+    relative, the scale)}."""
+    import torch
+
+    from repro_torch.models import RunCtx, forward, init_params
+    from repro_torch.models.lm import map_tree
+
+    rng = np.random.default_rng(3)
+    ctx = RunCtx(rec_chunk=chunk)
+    errs = {}
+    for name, cfg in (("xlstm", xlstm), ("zamba2", zamba)):
+        params = init_params(cfg, 0, device=dev)
+        cpu = map_tree(params, lambda t: t.cpu())
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, S)))
+        got, _ = forward(params, cfg, {"tokens": toks.to(dev)}, ctx)
+        want, _ = forward(cpu, cfg, {"tokens": toks}, ctx)
+        errs[f"{name}_card_vs_cpu"] = lm_close_scaled(got, want, f"{name} card against CPU")
+        del cpu, want
+        errs[f"{name}_decode_vs_forward"] = lm_close_scaled(
+            teacher_forced(params, cfg, toks.to(dev)), got, f"{name} decode against forward")
+        del params, got
+        torch.cuda.empty_cache()
+    return errs
+
+
+def decode_at_length(dev, cfg, params, B, max_len, steps=8):
+    """``steps`` decode steps timed at the last positions of a fresh cache
+    of ``max_len`` (after one untimed step): the attention's cost and
+    bound at that length (the port attends over the whole cache); every
+    logit finite. Returns the numbers."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache
+
+    torch.cuda.empty_cache()
+    cache = init_cache(cfg, B, max_len, device=dev)
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    lo = max_len - steps
+    lg, _ = decode_step(params, cfg, tok, torch.full((B,), lo - 1, device=dev), cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lg, _ = decode_step(params, cfg, lg.argmax(-1), torch.full((B,), lo + i, device=dev),
+                            cache)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    assert bool(torch.isfinite(lg).all()), f"{cfg.name} at {max_len}: a non-finite logit"
+    _, step_bytes = lm_bounds(cfg, params, B, 0, max_len - (steps - 1) / 2,
+                              state_bytes=state_bytes_of(cache))
+    out = dict(max_len=max_len, positions=[lo, max_len - 1],
+               cache_bytes=sum(t.numel() * t.element_size() for _, t in _leaves(cache)),
+               decode_ms_per_step=step_s * 1e3, decode_bytes_per_step=step_bytes,
+               decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3)
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def slstm_prefill_ms(dev, cfg, params, B, S):
+    """Device-synchronised ms of one sLSTM layer's mixer over B × S tokens
+    (a step-by-step loop on the host), after one untimed call."""
+    import torch
+
+    from repro_torch.models import recurrent
+
+    mix = {k: v[0] for k, v in params["units"]["slstm"]["mix"].items()}
+    x = torch.randn((B, S, cfg.d_model), generator=torch.Generator(dev).manual_seed(0),
+                    device=dev).to(torch.bfloat16)
+    recurrent.slstm_mix(mix, cfg, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recurrent.slstm_mix(mix, cfg, x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def serve_lm_recurrent(dev, smi, long_len=4224):
+    """Phase 20 (``lm_recurrent``): the recurrent families on the card. (a)
+    ``lm_recurrent_fp32_checks``: xLSTM-1.3B at 8 layers, Zamba2-2.7B at 6,
+    fp32. (b) Each as published in bf16 through ``lm_served``: the ``lm``
+    cell's traffic (8 prompts of 1024 tokens, prefill, a 1152-position
+    cache, 64 greedy steps, 8 under the profiler) with the fill over the
+    prompts' first REC_FILL tokens, held against a prefill of those;
+    then ``decode_at_length`` at ``long_len`` positions (a recurrent state
+    is the same at any length, Zamba2's shared KV grows), and for xLSTM
+    one sLSTM layer's prefill time. The path runs no hand-written kernel:
+    the launch counts stay 0. Prints the ``{"lm_recurrent": ...}`` line."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    xl, zb = configs.get_config("xlstm-1.3b"), configs.get_config("zamba2-2.7b")
+
+    def fp32(cfg, layers):
+        return cfg.replace(dtype="float32", param_dtype="float32", num_layers=layers)
+
+    errs = lm_recurrent_fp32_checks(dev, fp32(xl, 8), fp32(zb, 6))
+    rel = {k: r for k, (_, r, _) in errs.items()}
+    scales = {k: sc for k, (_, _, sc) in errs.items()}
+    errs = {k: e for k, (e, _, _) in errs.items()}
+    log(phase="lm_recurrent_fp32", tol=LM_TOL, max_abs_err=errs, rel_err=rel,
+        logit_scale=scales, seconds=time.perf_counter() - t_phase, card=smi)
+    served = {}
+    for cfg in (xl, zb):
+        t0 = time.perf_counter()
+        out, st = lm_served(dev, cfg, fill=REC_FILL, keep=True, rule=recurrent_fill_rule(cfg))
+        del st["filled"]
+        out["long"] = decode_at_length(dev, cfg, st["params"], 8, long_len)
+        if "slstm" in st["params"]["units"]:
+            out["slstm_layer_prefill_ms"] = slstm_prefill_ms(dev, cfg, st["params"], 8, 1024)
+        out["seconds"] = time.perf_counter() - t0
+        served[cfg.name] = out
+        del st
+        torch.cuda.empty_cache()
+        log(phase="lm_recurrent_model", **out, card=smi)
+    counts = ops.launch_counts()
+    assert not any(counts.values()), counts
+    print(json.dumps({"lm_recurrent": dict(
+        models=served, fp32_max_abs_err=errs, fp32_rel_err=rel, fp32_logit_scale=scales,
+        fp32_tol=LM_TOL, fill_witness_factor=FILL_WITNESS_FACTOR,
+        fill_tokens=REC_FILL, fill_max_abs_limit=FILL_MAX_ABS,
+        fill_argmax_agree_limit=FILL_ARGMAX_AGREE, tf32=torch.backends.cuda.matmul.allow_tf32,
+        kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
+        card=smi)}, default=float), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3247,6 +3647,12 @@ def main() -> int:
         del ex
         torch.cuda.empty_cache()
 
+    # ---------------------------------------------------- 4b. the whole-mesh step
+    counts = spmd_search(dev, smi, index, q_all[lo128:lo128 + 128],
+                         oracle.scores[lo128:lo128 + 128], oracle.ids[lo128:lo128 + 128])
+    for k in served:
+        served[k] += counts[k]
+
     time_topk_path_shaped(dev, smi, splits)
 
     # ---------------------------------------------------------- 5. serve_engine
@@ -3286,8 +3692,9 @@ def main() -> int:
             served[k] += counts[k]
     serve_lm(dev, smi)                                  # 18. the LM substrate
     serve_lm_moe(dev, smi)                              # 19. its MoE serving path
+    serve_lm_recurrent(dev, smi)                        # 20. the recurrent families
 
-    # ---------------------------------------------------------- 20. report
+    # ---------------------------------------------------------- 21. report
     # one entry per kernel route; a kernel's own count takes all of its
     # routes, so the f32-row and K <= 256 entries are the rest
     sources = {

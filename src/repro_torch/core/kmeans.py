@@ -19,6 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch._device import DeviceLike, resolve_device
+
 
 def _pairwise_sq_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[n, d] x [m, d] -> [n, m] squared L2 distances."""
@@ -88,3 +90,13 @@ def kmeans_fit(
     assign, _ = assign_nearest(x, centers)
     return centers, assign
 
+
+
+def kmeans_fit_np(x: np.ndarray, k: int, iters: int = 12, seed: int = 0, *,
+                  device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`kmeans_fit` from numpy to numpy: the rows as f32 on
+    ``device`` (CUDA by default), the centers f32 [k, d] and the assignment
+    int32 [n] back on the host, the reference's dtypes."""
+    xt = torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
+    c, a = kmeans_fit(xt, k, iters, seed)
+    return c.cpu().numpy(), a.to(torch.int32).cpu().numpy()

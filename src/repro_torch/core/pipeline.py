@@ -22,6 +22,13 @@ explicit loops on one GPU, with the same semantics:
 
 Stats sum the tile skip maps over every (v, b, chunk, stage), as the
 reference's two ``psum``\\ s do.
+
+The reference's whole-mesh step, ``make_spmd_search(scfg, mesh)``, takes
+``VirtualMesh(data=V, model=B)`` here, and its operands come from
+:func:`build_spmd_inputs` (shapes and dtypes: :func:`input_specs`). The
+reference's ``corpus_shardings`` / ``query_shardings`` /
+``input_shardings`` place those operands on a device mesh; the port runs
+on one card and has no counterpart.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from repro_torch.core.index import (
     fit_int8_grid,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.virtual_mesh import VirtualMesh
 
 
 @dataclass(frozen=True)
@@ -265,6 +273,44 @@ def build_query_arrays(
     return dict(queries=queries, probes=probes_pad, tau0=tau_pad)
 
 
+def build_spmd_inputs(index, corpus: ShardedCorpus, q: np.ndarray, scfg: SpmdConfig,
+                      probes: np.ndarray, tau0: np.ndarray) -> dict:
+    """Corpus and query-batch packing in one call: :func:`build_corpus_arrays`
+    (the int8 grid from ``index.int8_quant``) and :func:`build_query_arrays`
+    on that grid, every array a tensor on the corpus's device, keyed as
+    :func:`input_specs` lists them."""
+    quant = index.int8_quant(scfg.d_blocks) if scfg.precision == "int8" else None
+    arrays = build_corpus_arrays(corpus, scfg, quant=quant)
+    grid = arrays.pop("quant_grid", None)
+    dev = arrays["x_blocks"].device
+    queries = build_query_arrays(q, scfg, probes, tau0, quant_grid=grid)
+    return {**arrays, **{k: torch.as_tensor(v, device=dev) for k, v in queries.items()}}
+
+
+def input_specs(scfg: SpmdConfig) -> dict:
+    """The step's operands as ``meta`` tensors (shape and dtype, no
+    storage), keyed and shaped as the reference's ``ShapeDtypeStruct`` s."""
+    V, B, cap, D = scfg.v_shards, scfg.d_blocks, scfg.cap, scfg.dim
+    int8 = scfg.precision == "int8"
+    xdt = torch.int8 if int8 else getattr(torch, scfg.x_dtype)
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    out = dict(
+        x_blocks=spec((V, cap, D), xdt),
+        xn2_blocks=spec((B, V, cap), torch.float32),
+        cluster_ids=spec((V, cap), torch.int32),
+        row_ids=spec((V, cap), torch.int32),
+        queries=spec((scfg.qb, D), torch.int8 if int8 else torch.float32),
+        probes=spec((scfg.qb, scfg.nprobe), torch.int32),
+        tau0=spec((scfg.qb,), torch.float32),
+    )
+    if int8:
+        out["scale2"] = spec((B,), torch.float32)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
@@ -417,3 +463,48 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
     stats = torch.stack([skipped.to(torch.int64),
                          torch.tensor(total, dtype=torch.int64, device=dev)])
     return gs, gi, stats
+
+
+def make_device_fn(scfg: SpmdConfig):
+    """The step's body with the reference's argument order, ``(x_blocks,
+    xn2_blocks, cluster_ids, row_ids, [scale2,] queries, probes, tau0)``:
+    the whole mesh's operands as :func:`build_spmd_inputs` gives them
+    (:func:`input_specs`' shapes), re-laid by :func:`resident_arrays` and
+    searched by :func:`ring_chunk_search`, which covers every (v, b) in one
+    call. Returns (scores [qb, K], ids [qb, K], stats [2])."""
+    want = input_specs(scfg)
+    names = ["x_blocks", "xn2_blocks", "cluster_ids", "row_ids"] + (
+        ["scale2"] if scfg.precision == "int8" else []) + ["queries", "probes", "tau0"]
+
+    def device_fn(*operands):
+        if len(operands) != len(names):
+            raise TypeError(f"the step takes {len(names)} operands ({', '.join(names)}), "
+                            f"got {len(operands)}")
+        args = dict(zip(names, operands))
+        dev = args["x_blocks"].device
+        for name in names:
+            a = args[name] = torch.as_tensor(args[name], device=dev)
+            if a.shape != want[name].shape or a.dtype != want[name].dtype:
+                raise ValueError(f"{name}: {tuple(a.shape)} {a.dtype}, the step takes "
+                                 f"{tuple(want[name].shape)} {want[name].dtype}")
+        res = resident_arrays(args, scfg)
+        return ring_chunk_search(scfg, res["x_blk"], res["xn2_blk"], res["cluster_ids"],
+                                 res["row_ids"], args["queries"], args["probes"],
+                                 args["tau0"], scale2=res.get("scale2"))
+
+    return device_fn
+
+
+def make_spmd_search(scfg: SpmdConfig, mesh: VirtualMesh):
+    """The search step over ``mesh`` = ``VirtualMesh(data=scfg.v_shards,
+    model=scfg.d_blocks)``: :func:`make_device_fn`'s callable, returning
+    (scores, ids, stats) as the reference's ``jit(shard_map(...))`` does.
+    Any other mesh raises."""
+    if not isinstance(mesh, VirtualMesh):
+        raise NotImplementedError(
+            f"make_spmd_search over {type(mesh).__name__}: the port runs on one card; "
+            "pass VirtualMesh(data=v_shards, model=d_blocks)")
+    want = {"data": scfg.v_shards, "model": scfg.d_blocks}
+    if mesh.shape != want:
+        raise ValueError(f"the mesh is {mesh.shape}, the config's is {want}")
+    return make_device_fn(scfg)

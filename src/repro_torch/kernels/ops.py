@@ -102,6 +102,12 @@ def running_topk_update(
     return ref.running_topk_ref(scores, ids, run_s, run_i, k=k)
 
 
+def masked_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    """Ascending top-k of finite entries, id −1 at +inf (the plain
+    version on any device, as the reference backs it with its oracle)."""
+    return ref.masked_topk_ref(scores, ids, k)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches and plain-version calls since the last reset. A
     kernel's count takes every launch; ``partial_distance_update_bf16``,

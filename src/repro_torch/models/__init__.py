@@ -1,8 +1,8 @@
-"""LM substrate: layers and assembly for the arch pool (the transformer-unit
-families, MoE blocks included; recurrent mixers and training come with
-later slices)."""
+"""LM substrate: layers and assembly for the arch pool, the serving path of
+every family (transformer units with dense or MoE blocks, xLSTM, Zamba2;
+training comes with a later slice)."""
 
-from repro_torch.models import moe
+from repro_torch.models import moe, recurrent
 from repro_torch.models.lm import (
     RunCtx,
     cache_from_reference,
@@ -14,9 +14,9 @@ from repro_torch.models.lm import (
     prefill,
     unit_layout,
 )
-from repro_torch.models.moe import VirtualMesh
+from repro_torch.virtual_mesh import VirtualMesh
 
 __all__ = [
     "RunCtx", "VirtualMesh", "cache_from_reference", "decode_step", "forward", "init_cache",
-    "init_params", "moe", "params_from_reference", "prefill", "unit_layout",
+    "init_params", "moe", "params_from_reference", "prefill", "recurrent", "unit_layout",
 ]

@@ -1,14 +1,19 @@
 """Model assembly for the assigned architecture pool: the serving path of
-the transformer-unit families.
+all ten architectures.
 
-The port of ``repro.models.lm`` for the families ``dense``, ``moe``,
-``vlm`` and ``audio``: transformer units (attention + FFN or MoE) with
-the per-family attention flavors (GQA, RoPE / M-RoPE, sliding-window
-local:global patterns with tail locals, QKV bias, softcap, bidirectional
-encoders). An MoE block runs ``models.moe.moe_ffn``: the dense path, or
-expert parallelism over ``RunCtx(mesh=VirtualMesh(data=ep))``. The
-recurrent kinds (xLSTM, Zamba2) raise ``NotImplementedError``: they come
-with a later slice of the port.
+The port of ``repro.models.lm``. One generic stack covers every family:
+
+* ``dense`` / ``moe`` / ``vlm`` / ``audio`` → transformer units
+  (attention + FFN or MoE) with the per-family attention flavors (GQA,
+  RoPE / M-RoPE, sliding-window local:global patterns with tail locals,
+  QKV bias, softcap, bidirectional encoders). An MoE block runs
+  ``models.moe.moe_ffn``: the dense path, or expert parallelism over
+  ``RunCtx(mesh=VirtualMesh(data=ep))``;
+* ``ssm`` → xLSTM units (mLSTM blocks with a periodic sLSTM);
+* ``hybrid`` → Zamba2 units (Mamba2 blocks, then the one shared
+  attention + FFN block, whose weights every unit applies).
+
+The recurrent mixers are ``models.recurrent``'s.
 
 Params and caches are nested dicts with the reference's keys and its
 stacked ``[n_units, …]`` layout, so a tree carries across
@@ -23,8 +28,11 @@ Public entry points:
   init_cache(cfg, batch_size, max_len, device=)  → decode state
   decode_step(params, cfg, token, pos, cache)    → (logits [B,V] f32, cache)
 
-``decode_step`` writes each new key, value and ring position into the
-cache's tensors in place and returns the same tree.
+``decode_step`` writes each new key, value and ring position, and each
+recurrent state once the step has read it, into the cache's tensors in
+place and returns the same tree. The recurrent caches hold tuples, as the
+reference's: mLSTM ``(C, n)``, sLSTM ``(c, n, h)``, Mamba2 ``(ssm,
+conv)``.
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from repro_torch._arrays import tensor_from_numpy
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
-from repro_torch.models.moe import VirtualMesh, init_moe, moe_ffn
+from repro_torch.models import recurrent as rec
+from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.virtual_mesh import VirtualMesh
 
 
 # ---------------------------------------------------------------------------
@@ -78,26 +88,13 @@ def unit_layout(cfg: ModelConfig) -> Dict[str, Any]:
     raise ValueError(cfg.family)
 
 
-def _supported_layout(cfg: ModelConfig) -> Dict[str, Any]:
-    """``unit_layout(cfg)`` for a config this slice of the port runs;
-    ``NotImplementedError`` for the kinds that later slices port."""
-    layout = unit_layout(cfg)
-    if layout["kind"] == "xlstm":
-        raise NotImplementedError(
-            f"{cfg.name}: xLSTM units (models/recurrent.py) come with the port's "
-            "recurrent slice (ROADMAP.md item 14c)")
-    if layout["kind"] == "zamba":
-        raise NotImplementedError(
-            f"{cfg.name}: Zamba2 units (models/recurrent.py) come with the port's "
-            "recurrent slice (ROADMAP.md item 14c)")
-    return layout
-
-
 def map_tree(tree, fn):
-    """``fn`` applied to every leaf of a nested dict (a param or cache
-    tree), the keys kept."""
+    """``fn`` applied to every leaf of a nested dict or tuple (a param or
+    cache tree), the keys and tuples kept."""
     if isinstance(tree, dict):
         return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_tree(v, fn) for v in tree)
     return fn(tree)
 
 
@@ -133,9 +130,13 @@ def _at(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
+def _norm_weight(cfg: ModelConfig, gen: torch.Generator) -> torch.Tensor:
+    return torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
+
+
 def _init_block(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
-    zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
-    blk = {"ln1": zeros(), "attn": cm.init_attention(cfg, gen), "ln2": zeros()}
+    blk = {"ln1": _norm_weight(cfg, gen), "attn": cm.init_attention(cfg, gen),
+           "ln2": _norm_weight(cfg, gen)}
     if cfg.is_moe:
         blk["moe"] = init_moe(cfg, gen)
     else:
@@ -150,13 +151,36 @@ def _init_transformer_unit(cfg: ModelConfig, gen: torch.Generator, layout) -> Di
     return {"block": _init_block(cfg, gen)}
 
 
+def _init_xlstm_unit(cfg: ModelConfig, gen: torch.Generator, layout) -> Dict[str, Any]:
+    """``mlstm_per_unit`` stacked mLSTM blocks, then the sLSTM block when
+    the unit has one, each a pre-norm and its mixer."""
+    m = layout["mlstm_per_unit"]
+    out: Dict[str, Any] = {}
+    if m:
+        out["mlstm"] = _stacked(
+            lambda: {"ln": _norm_weight(cfg, gen), "mix": rec.init_mlstm(cfg, gen)}, m)
+    if layout["unit_layers"] > m:
+        out["slstm"] = {"ln": _norm_weight(cfg, gen), "mix": rec.init_slstm(cfg, gen)}
+    return out
+
+
+def _init_zamba_unit(cfg: ModelConfig, gen: torch.Generator, layout) -> Dict[str, Any]:
+    return {"mamba": _stacked(
+        lambda: {"ln": _norm_weight(cfg, gen), "mix": rec.init_mamba2(cfg, gen)},
+        layout["mamba_per_unit"])}
+
+
+_INIT_UNIT = {"transformer": _init_transformer_unit, "xlstm": _init_xlstm_unit,
+              "zamba": _init_zamba_unit}
+
+
 def init_params(cfg: ModelConfig, seed_or_generator: Union[int, torch.Generator], *,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's param tree (keys, stacked shapes, dtypes), drawn as
     the reference draws it: truncated normals on [−2, 2] (dense weights
     scaled by 1/√fan_in), zero norms and biases. An int seeds a generator
     on ``device`` (CUDA by default); a generator must live on ``device``."""
-    layout = _supported_layout(cfg)
+    layout = unit_layout(cfg)
     dev = resolve_device(device)
     if isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
@@ -169,10 +193,14 @@ def init_params(cfg: ModelConfig, seed_or_generator: Union[int, torch.Generator]
         "embed": cm.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
     }
-    params["units"] = _stacked(lambda: _init_transformer_unit(cfg, gen, layout),
-                               max(layout["n_units"], 1))
-    if layout["tail_locals"]:
+    init_unit = _INIT_UNIT[layout["kind"]]
+    params["units"] = _stacked(lambda: init_unit(cfg, gen, layout), max(layout["n_units"], 1))
+    if layout.get("tail_locals"):
         params["tail_local"] = _stacked(lambda: _init_block(cfg, gen), layout["tail_locals"])
+    if cfg.family == "hybrid":
+        # Zamba2's shared attention + FFN block: one copy, applied in every unit
+        params["shared"] = {"ln1": _norm_weight(cfg, gen), "attn": cm.init_attention(cfg, gen),
+                            "ln2": _norm_weight(cfg, gen), "ffn": cm.init_ffn(cfg, gen)}
     if not cfg.tie_embeddings:
         params["lm_head"] = cm.dense_init(gen, (cfg.d_model, cfg.vocab_size), 0, dt)
     return params
@@ -183,15 +211,18 @@ def params_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
     ``jax.device_get`` gives them; bf16 leaves as ``ml_dtypes`` arrays) as
     the port's tree of tensors on ``device`` (CUDA by default): the same
     keys, the stacked layout, the same dtypes and bits."""
-    _supported_layout(cfg)
     dev = resolve_device(device)
     return map_tree(tree, lambda a: tensor_from_numpy(a).to(dev))
 
 
 def cache_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
-    """The reference's decode cache (``init_cache``'s tree, numpy leaves)
-    as the port's, on ``device`` (CUDA by default)."""
-    return params_from_reference(cfg, tree, device=device)
+    """The reference's decode cache (``init_cache``'s tree, numpy leaves;
+    the recurrent states as tuples) as the port's, on ``device`` (CUDA by
+    default). Every leaf is a copy: ``decode_step`` writes the cache in
+    place, and must not write into the caller's arrays (those
+    ``jax.device_get`` gives may share the reference's own buffers)."""
+    dev = resolve_device(device)
+    return map_tree(tree, lambda a: tensor_from_numpy(a).to(dev, copy=True))
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +288,39 @@ def _transformer_unit_fwd(cfg, unit, x, pos, ctx: RunCtx, layout):
     return x, aux + a
 
 
+def _xlstm_unit_fwd(cfg, unit, x, ctx: RunCtx):
+    """One xLSTM unit: its mLSTM blocks, then its sLSTM block, each a
+    pre-norm residual mixer from a zero state."""
+    if "mlstm" in unit:
+        for i in range(unit["mlstm"]["ln"].shape[0]):
+            blk = _at(unit["mlstm"], i)
+            x = x + rec.mlstm_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
+                                  chunk=ctx.rec_chunk, unroll_chunks=ctx.unroll_chunks)[0]
+    if "slstm" in unit:
+        blk = unit["slstm"]
+        x = x + rec.slstm_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps))[0]
+    return x
+
+
+def _shared_block(cfg, shared, x, attend):
+    """Zamba2's shared block on x: ``attend`` (the attention on the normed
+    x), then the FFN, each a residual."""
+    x = x + attend(cm.rms_norm(x, shared["ln1"], cfg.norm_eps))
+    return x + cm.ffn(shared["ffn"], cfg, cm.rms_norm(x, shared["ln2"], cfg.norm_eps))
+
+
+def _zamba_unit_fwd(cfg, unit, shared, x, pos, ctx: RunCtx):
+    """One Zamba2 unit: its Mamba2 blocks from a zero state, then the
+    shared attention + FFN block (causal attention over the sequence)."""
+    for i in range(unit["mamba"]["ln"].shape[0]):
+        blk = _at(unit["mamba"], i)
+        x = x + rec.mamba2_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
+                               chunk=ctx.rec_chunk, unroll_chunks=ctx.unroll_chunks)[0]
+    return _shared_block(cfg, shared, x, lambda h: cm.attention(
+        shared["attn"], cfg, h, pos, causal=True, q_chunk=ctx.q_chunk,
+        unroll_chunks=ctx.unroll_chunks, kv_range_chunking=ctx.kv_range_chunking))
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill-style)
 # ---------------------------------------------------------------------------
@@ -296,14 +360,21 @@ def forward(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> Tuple[to
     [3, B, S] for M-RoPE) or ``frames`` [B, S, D]. Returns (logits
     [B,S,V] f32, the MoE blocks' aux loss summed in the reference's
     order; 0 without experts)."""
-    layout = _supported_layout(cfg)
+    layout = unit_layout(cfg)
     x, pos = _embed_in(params, cfg, batch)
     n_units = layout["n_units"] if ctx.n_units_override is None else ctx.n_units_override
     aux = 0.0
     for u in range(min(n_units, layout["n_units"])):
-        x, a = _transformer_unit_fwd(cfg, _at(params["units"], u), x, pos, ctx, layout)
-        aux = aux + a
-    if layout["tail_locals"] and (ctx.n_units_override is None or ctx.n_units_override > 0):
+        unit = _at(params["units"], u)
+        if layout["kind"] == "xlstm":
+            x = _xlstm_unit_fwd(cfg, unit, x, ctx)
+        elif layout["kind"] == "zamba":
+            x = _zamba_unit_fwd(cfg, unit, params["shared"], x, pos, ctx)
+        else:
+            x, a = _transformer_unit_fwd(cfg, unit, x, pos, ctx, layout)
+            aux = aux + a
+    if layout.get("tail_locals") and (ctx.n_units_override is None
+                                      or ctx.n_units_override > 0):
         for i in range(layout["tail_locals"]):
             x, a = _attn_block(_at(params["tail_local"], i), cfg, x, pos, ctx,
                                sliding=cfg.sliding_window, causal=not cfg.encoder_only)
@@ -328,14 +399,39 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, *,
     """Decode state for all units, on ``device`` (CUDA by default): a
     global KV of ``max_len`` positions per attention layer; for a
     local:global pattern, ring buffers of ``sliding_window`` slots for the
-    local layers (and the tail locals) with their positions (−1 = empty)."""
-    layout = _supported_layout(cfg)
+    local layers (and the tail locals) with their positions (−1 = empty).
+    xLSTM: per unit the mLSTM states ``(C [m, B, H, hd, hd], n)`` and the
+    sLSTM's ``(c, n, h)`` [B, H, hd] (n starts at 1), all f32. Zamba2: the
+    Mamba2 states ``(ssm [m, B, Hm, 64, ds] f32, conv [m, B, W−1, di +
+    2·ds])`` and the shared block's KV of ``max_len`` per unit."""
+    layout = unit_layout(cfg)
     dev = resolve_device(device)
     n, dt = layout["n_units"], cm.dtype_of(cfg)
     KV, hd, B = cfg.num_kv_heads, cfg.head_dim, batch_size
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if layout["kind"] == "xlstm":
+        H, m = cfg.num_heads, layout["mlstm_per_unit"]
+        hd_i = (cfg.ssm_expand or 2) * cfg.d_model // H
+        out: Dict[str, Any] = {}
+        if m:
+            out["mlstm"] = (zeros(n, m, B, H, hd_i, hd_i, dtype=torch.float32),
+                            zeros(n, m, B, H, hd_i, dtype=torch.float32))
+        if layout["unit_layers"] > m:
+            hd_s = cfg.d_model // H
+            out["slstm"] = (zeros(n, B, H, hd_s, dtype=torch.float32),
+                            torch.ones((n, B, H, hd_s), dtype=torch.float32, device=dev),
+                            zeros(n, B, H, hd_s, dtype=torch.float32))
+        return out
+    if layout["kind"] == "zamba":
+        di, ds, m = cfg.ssm_expand * cfg.d_model, cfg.ssm_state, layout["mamba_per_unit"]
+        dh = rec.MAMBA_HEAD_DIM
+        return {"mamba": (zeros(n, m, B, di // dh, dh, ds, dtype=torch.float32),
+                          zeros(n, m, B, cfg.ssm_conv - 1, di + 2 * ds)),
+                "shared": {"k": zeros(n, B, max_len, KV, hd),
+                           "v": zeros(n, B, max_len, KV, hd)}}
 
     def ring(*lead):
         W = max(cfg.sliding_window, 1)
@@ -358,7 +454,7 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache,
     (logits [B, V] f32, cache), the cache updated in place. (The
     reference's one-hot write drops a token at ``pos ≥ max_len``; the
     port's index write raises on the CPU and fails on the card.)"""
-    layout = _supported_layout(cfg)
+    layout = unit_layout(cfg)
     if embeds is None:
         x = _scale_embed(cfg, params["embed"][token][:, None, :])       # [B,1,D]
     else:
@@ -367,9 +463,14 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache,
         return _head(params, cfg, x)[:, 0], cache
     for u in range(layout["n_units"]):
         cache_u = {k: _at(v, u) for k, v in cache.items() if k != "tail_local"}
-        x, _ = _transformer_unit_decode(cfg, _at(params["units"], u), x, pos, cache_u, layout,
-                                        ctx)
-    for i in range(layout["tail_locals"]):
+        unit = _at(params["units"], u)
+        if layout["kind"] == "xlstm":
+            x = _xlstm_unit_decode(cfg, unit, x, cache_u)
+        elif layout["kind"] == "zamba":
+            x = _zamba_unit_decode(cfg, unit, params["shared"], x, pos, cache_u)
+        else:
+            x, _ = _transformer_unit_decode(cfg, unit, x, pos, cache_u, layout, ctx)
+    for i in range(layout.get("tail_locals", 0)):
         x = _local_decode(cfg, _at(params["tail_local"], i), x, pos, cache["tail_local"], i,
                           ctx)
     return _head(params, cfg, x)[:, 0], cache
@@ -400,6 +501,48 @@ def _transformer_unit_decode(cfg, unit, x, pos, cache_u, layout, ctx: RunCtx):
         return _kv_decode(cfg, unit["global"], x, pos, cache_u["global"], ctx), cache_u
     return _kv_decode(cfg, unit["block"], x, pos, cache_u["block"], ctx,
                       cfg.sliding_window), cache_u
+
+
+def _write_state(dst, src) -> None:
+    """The new recurrent state into the cache's own tensors."""
+    for d, s_ in zip(dst, src):
+        d.copy_(s_)
+
+
+def _xlstm_unit_decode(cfg, unit, x, cache_u):
+    """One xLSTM unit at S = 1: the mixers with ``chunk=1`` from the
+    cache's states, each state written back in place once read."""
+    if "mlstm" in unit:
+        C, n = cache_u["mlstm"]
+        for i in range(C.shape[0]):
+            blk = _at(unit["mlstm"], i)
+            h, st = rec.mlstm_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
+                                  chunk=1, state=(C[i], n[i]))
+            x = x + h
+            _write_state((C[i], n[i]), st)
+    if "slstm" in unit:
+        blk = unit["slstm"]
+        h, st = rec.slstm_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
+                              state=cache_u["slstm"])
+        x = x + h
+        _write_state(cache_u["slstm"], st)
+    return x
+
+
+def _zamba_unit_decode(cfg, unit, shared, x, pos, cache_u):
+    """One Zamba2 unit at S = 1: the Mamba2 blocks with ``chunk=1``, each
+    state written back in place once read, then the shared block over the
+    unit's own KV cache."""
+    ssm, conv = cache_u["mamba"]
+    for i in range(ssm.shape[0]):
+        blk = _at(unit["mamba"], i)
+        h, st = rec.mamba2_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
+                               chunk=1, state=(ssm[i], conv[i]))
+        x = x + h
+        _write_state((ssm[i], conv[i]), st)
+    kv = cache_u["shared"]
+    return _shared_block(cfg, shared, x, lambda h: cm.attention_decode(
+        shared["attn"], cfg, h, pos, kv["k"], kv["v"])[0])
 
 
 def _ring_attention_decode(p, cfg, x, pos, k_cache, v_cache, pos_cache):

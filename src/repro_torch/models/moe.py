@@ -25,36 +25,13 @@ two agree.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import common as cm
-
-
-@dataclasses.dataclass(frozen=True)
-class VirtualMesh:
-    """A ``jax.sharding.Mesh`` of ``data`` × 1 (axes ``data``, ``model``)
-    on one card: ``data`` expert-parallel ranks, each holding
-    ``E / data`` experts and ``B / data`` of the batch, run as a leading
-    tensor dimension. The only mesh the port accepts.
-
-    ``drop_log``, when a list, receives from every ``moe_ffn_ep`` call one
-    int tensor [B, S] on the card: each token's slots dropped past a
-    capacity (no host sync)."""
-
-    data: int = 1
-    drop_log: Optional[list] = dataclasses.field(default=None, compare=False, repr=False)
-
-    def __post_init__(self):
-        if not (isinstance(self.data, int) and self.data >= 1):
-            raise ValueError(f"VirtualMesh(data={self.data!r}): a positive rank count")
-
-    @property
-    def shape(self) -> Dict[str, int]:
-        return {"data": self.data, "model": 1}
+from repro_torch.virtual_mesh import VirtualMesh
 
 
 def _mesh_ep(mesh, data_axis: str, model_axis: str) -> int:
@@ -65,6 +42,10 @@ def _mesh_ep(mesh, data_axis: str, model_axis: str) -> int:
     if data_axis != "data" or model_axis != "model":
         raise ValueError(f"a VirtualMesh has the axes data and model, not "
                          f"{data_axis!r} and {model_axis!r}")
+    if mesh.model != 1:
+        raise NotImplementedError(
+            f"moe_ffn_ep over VirtualMesh(model={mesh.model}): the port's EP layer "
+            "keeps each expert whole on its rank; pass VirtualMesh(data=ep)")
     return mesh.shape["data"]
 
 

@@ -62,6 +62,7 @@ def test_imports_without_jax_or_repro():
             "repro_torch.serve.engine", "repro_torch.core.planner",
             "repro_torch.core.cost_model"} <= set(mods)
     assert SERVING_PLANE <= set(mods), SERVING_PLANE - set(mods)
+    assert {"repro_torch.models.recurrent", "repro_torch.virtual_mesh"} <= set(mods)
 
 
 def test_source_scan_no_jax_or_reference_imports():

@@ -51,7 +51,6 @@ SERVED = ["gemma3-27b", "hubert-xlarge", "internlm2-20b", "phi3-mini-3.8b",
           "qwen1.5-4b", "qwen2-vl-7b"]
 # the MoE family: through RunCtx() (the dense path) and VirtualMesh(data=2)
 MOE = ["kimi-k2-1t-a32b", "olmoe-1b-7b"]
-LATER = ["xlstm-1.3b", "zamba2-2.7b"]
 EP_CTX = 2                    # the data axis of the VirtualMesh cases
 TOL32 = dict(rtol=1e-4, atol=1e-4)
 # bf16 logits. The reference is compiled with XLA's excess precision off
@@ -290,27 +289,6 @@ def test_entry_points_need_cuda_by_default(monkeypatch):
     assert init_params(cfg, 0, device="cpu")["embed"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(tcfgs.get_smoke_config("olmoe-1b-7b"), 0)
-
-
-@pytest.mark.parametrize("arch", LATER)
-def test_later_families_raise_not_implemented(arch):
-    cfg = tcfgs.get_smoke_config(arch)
-    slice_name = "recurrent"
-    ref = jax.device_get(jax.eval_shape(
-        lambda k: r_init_params(rcfgs.get_smoke_config(arch), k), jax.random.PRNGKey(0)))
-    tok = torch.zeros(2, dtype=torch.int64)
-    calls = [
-        lambda: init_params(cfg, 0, device="cpu"),
-        lambda: init_cache(cfg, 2, 8, device="cpu"),
-        lambda: forward({}, cfg, {"tokens": tok[None]}),
-        lambda: prefill({}, cfg, {"tokens": tok[None]}),
-        lambda: decode_step({}, cfg, tok, tok, {}),
-        lambda: params_from_reference(cfg, ref, device="cpu"),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=slice_name):
-            call()
-    assert unit_layout(cfg) == rlm.unit_layout(rcfgs.get_smoke_config(arch))
 
 
 def test_runctx_mesh_and_head_sharding_raise():
