@@ -69,8 +69,8 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
    shapes and at K = 80, 256 (``time_merge_shapes``).
 6. Large k (``serve_engine_large_k``): on the plane phase 5 left, an fp32
    server at k = 300 and an int8 server at k = 100 (K' = 400), each
-   against ``engine_oracle``, every K > 256 launch on the top-K kernel's
-   route 2 (``running_topk_update_large_k``). Then k above 12288
+   against ``engine_oracle``, every launch above the route 1/2 boundary
+   (K > 64) on the top-K kernel's route 2 (``running_topk_update_large_k``). Then k above 12288
    (``serve_engine_huge_k``): 8 queries at k = 12289 (fp32) and k = 3073
    (int8, K' = 12292) on route 3 (``running_topk_update_huge_k``).
 7. bf16 rows (``serve_bf16``): an executor with ``x_dtype="bfloat16"`` on
@@ -110,9 +110,17 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
 The kernel checks of phase 2 also hold the top-K kernel's route 2 (K in
 {320, 512, 1024, 4096} × C in {256, 4096, 8192}, the merge at k = 300) and
 route 3 (K in {12289, 16384, 20000} × C in {256, 4096, 12289}, and the
-served shapes) bit for bit, and the distance kernel's bf16-row route at the
-f32 route's rule; phase 2's timing covers every route. Each of phases 3–20
-resets the launch counts before it and reads them after it.
+served shapes) bit for bit, each at the input kinds of ``mk_topk_branch``
+(ascending candidates as the merge passes them, survivors at and one
+above the one-warp cut, rows with no survivor beside full ones among
+them), the merge's C = K in {300, 4096, 12289, 16384} at M in {1, 8, 128},
+and K at the route 1/2 boundary and one above; and the distance kernel's
+bf16-row route at the f32 route's rule; phase 2's timing covers every
+route; every top-K shape checked or timed launches as
+``topk_update.plan`` says (the source's ``topk_update_plan``). After
+phase 4b the top-K kernel is also timed on path-shaped rows of the served
+k = 300 and int8 k = 100 rings. Each of phases 3–20 resets the launch
+counts before it and reads them after it.
 
 13-16. The serving plane (``serve_plane``) on a plane of the index as one
     sealed segment (spmd executors, ``n_nodes=8``), with one 2048-request
@@ -404,15 +412,15 @@ def check_kernels(dev):
     branch_shapes = [(1, 256, 10), (130, 256, 40), (130, 256, 1), (130, 256, 64),
                      (130, 1, 1), (130, 10, 10), (130, 40, 40), (130, 257, 64),
                      (64, 4096, 40), (3, 4096, 64)]
-    # K above 64 (4 and 8 list entries a lane; K' = 80 is the int8 tier at
-    # k = 20), and the served merge's shapes: M = nq, C = K = k
+    # K above 64 (route 2 above the boundary; K' = 80 is the int8 tier at k = 20),
+    # and the served merge's shapes: M = nq, C = K = k
     branch_shapes += [(m, c, k) for k in (80, 128, 256) for c in (80, 256, 4096)
                       for m in ((130, 3) if c == 4096 else (130,))]
     branch_shapes += [(m, k, k) for m in (1, 8, 32, 128, 160) for k in (10, 20)]
-    # route 2 (K > 256: one CTA a row, the list in shared memory, C in
-    # windows of 2048): the int8 ring at k = 100 (K' = 400) and beyond, up
-    # to K = 4096 (int8 at k = 1024); C past one window; the served merge
-    # at k = 300 (C = K = 300)
+    # route 2 (one CTA a row, the list in shared memory, C in windows of up
+    # to 2048): the int8 ring at k = 100 (K' = 400) and beyond, up to
+    # K = 4096 (int8 at k = 1024); C past one window; the served merge at
+    # k = 300 (C = K = 300)
     big_shapes = [(130, c, k) for k in (320, 512, 1024, 4096) for c in (256, 4096, 8192)]
     big_shapes += [(m, 300, 300) for m in (1, 128)] + [(1, 8192, 4096), (128, 256, 400)]
     n_big = 0
@@ -426,12 +434,12 @@ def check_kernels(dev):
                 assert torch.equal(gs, ws) and torch.equal(gi, wi), \
                     f"running_topk differs at {(m, c, k, kind)}, ids stride {ids.stride(0)}"
             n_checked += 1
-            n_big += k > topk_update.WARP_MAX_K
+            n_big += topk_update.route(k) == 2
     errs["running_topk_update_large_k"] = 0.0
-    # route 3 (K > 12288: one CTA a row, the list in global memory, merged
-    # window by window through a scratch list): the served fp32 k = 12289
-    # and int8 K' = 12292 and beyond, C within one window, past it, and at
-    # the served merge's C = K
+    # route 3 (K > 12288: tiles of output positions a CTA, the list in
+    # global memory; above 2048 columns window runs merged in passes): the
+    # served fp32 k = 12289 and int8 K' = 12292 and beyond, C within one
+    # launch, past it, and at the served merge's C = K
     n_huge = 0
     huge_shapes = [(3, c, k) for k in (12289, 16384, 20000) for c in (256, 4096, 12289)]
     huge_shapes += [(8, 256, 12292), (8, 12289, 12289)]
@@ -446,7 +454,32 @@ def check_kernels(dev):
                     f"running_topk route 3 differs at {(m, c, k, kind)}, ids stride {ids.stride(0)}"
             n_checked += 1
             n_huge += 1
+    # the merge's C = K at M = 1, 8 and 128 on both routes (K = 300 and 4096
+    # on route 2; 12289 and 16384 on route 3, where C > 2048 takes the
+    # window-run-pass launches), and K at the route 1/2 boundary and one above
+    cut = topk_update.WARP_MAX_K
+    more = [(m, c, c) for m in (1, 8, 128) for c in (300, 4096, 12289, 16384)]
+    more += [(128, c, k) for k in (cut, cut + 1) for c in (256, k)]
+    # route 3 past one merge pass: 3 and 5 windows of 8192 columns (2 and 3
+    # passes through the ping-pong runs), and two chunks of 2^18 columns
+    # (the second merging into the list the first wrote, through a scratch)
+    more += [(8, 20000, 20000), (3, 40000, 12289), (1, 300000, 12289)]
+    for m, c, k in more:
+        for kind in TOPK_KINDS:
+            a = [t(v) for v in mk_topk_branch(rng, m, c, k, kind)]
+            for ids in (a[1], a[1][0].expand(m, c)):
+                gs, gi = topk_update.running_topk_update(a[0], ids, a[2], a[3], k=k)
+                ws, wi = ref.running_topk_ref(a[0], ids, a[2], a[3], k=k)
+                torch.cuda.synchronize()
+                assert torch.equal(gs, ws) and torch.equal(gi, wi), \
+                    f"running_topk differs at {(m, c, k, kind)}, ids stride {ids.stride(0)}"
+            n_checked += 1
+            n_big += topk_update.route(k) == 2
+            n_huge += topk_update.route(k) == 3
     errs["running_topk_update_huge_k"] = 0.0
+    # every top-K shape checked here launches as plan() says
+    for m, c, k in branch_shapes + big_shapes + huge_shapes + more:
+        assert topk_update.launched_plan(m, c, k) == topk_update.plan(m, c, k), (m, c, k)
     # bf16 rows at the ring's shapes (M = QG = 128 / 64 at Db = 128 / 64,
     # N = 256), with and without a dead tile, then ragged tiles, chunked and
     # unaligned contractions (the element-wise staging path); held at the
@@ -487,7 +520,9 @@ def check_kernels(dev):
     return errs, n_checked
 
 
-TOPK_KINDS = ("path", "run_entries", "run_inf", "run_part", "windows")
+TOPK_KINDS = ("path", "run_entries", "run_inf", "run_part", "windows", "ascending",
+              "few", "mixed")
+FEW_CUT = 32      # survivors one warp ranks alone (routes 2 and 3: no merge round)
 
 
 def mk_topk_branch(rng, m, c, k, kind):
@@ -498,7 +533,14 @@ def mk_topk_branch(rng, m, c, k, kind):
     from the row's run entries, the last one included, with +inf holes.
     ``run_inf`` / ``run_part``: a run all +inf or +inf from K/2 on, under an
     all-finite chunk. ``windows``: 300 distinct integer scores over the row,
-    so equal scores fall in different 256-column windows."""
+    so equal scores fall in different 256-column windows. ``ascending``:
+    each row's candidates ascending with a +inf tail, as the fused merge
+    passes them, drawn from the run's 300 integer scores, so equal scores
+    span windows and tiles and equal run entries; every other row's run all
+    +inf (the merge's first part). ``few``: rows in turn with ``FEW_CUT``,
+    ``FEW_CUT + 1`` and no survivor below run_s[K-1] (the rest at it or
+    +inf). ``mixed``: rows with no survivor next to rows whose every
+    candidate survives."""
     import numpy as np
 
     run_s = np.sort(np.round(rng.uniform(1, 100, size=(m, k))), axis=1).astype(np.float32)
@@ -529,6 +571,22 @@ def mk_topk_branch(rng, m, c, k, kind):
     elif kind == "windows":
         s = rng.integers(0, 300, size=(m, c)).astype(np.float32)
         run_s = np.sort(rng.integers(0, 300, size=(m, k)), axis=1).astype(np.float32)
+    elif kind == "ascending":
+        run_s = np.sort(rng.integers(0, 300, size=(m, k)), axis=1).astype(np.float32)
+        s = rng.integers(0, 300, size=(m, c)).astype(np.float32)
+        s[rng.random((m, c)) < 0.2] = np.inf
+        s = np.sort(s, axis=1)
+        run_s[::2] = np.inf
+        run_i[::2] = -1
+    elif kind == "few":
+        s = np.where(rng.random((m, c)) < 0.5, thr, np.inf).astype(np.float32)
+        for r in range(m):
+            n = min(c, (FEW_CUT, FEW_CUT + 1, 0)[r % 3])
+            cols = rng.choice(c, size=n, replace=False)
+            s[r, cols] = np.floor(thr[r, 0] * rng.uniform(0, 0.999, size=n))
+    elif kind == "mixed":
+        s = (thr * rng.uniform(0, 0.999, size=(m, c))).astype(np.float32)
+        s[::2] = np.where(rng.random((len(s[::2]), c)) < 0.5, thr[::2], np.inf)
     else:
         raise ValueError(kind)
     return s.astype(np.float32), ids, run_s, run_i
@@ -565,7 +623,7 @@ def time_kernels(dev, smi):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import distance, distance_int8, ops, ref
+    from repro_torch.kernels import distance, distance_int8, ops, ref, topk_update
 
     rng = np.random.default_rng(1)
 
@@ -677,38 +735,41 @@ def time_kernels(dev, smi):
                    plain_call_ms=plain_call, library_call_ms=lib_call, card=smi)
         log(**row)
         timed.setdefault("partial_distance_update_bf16", row)
-    # route 2 of the top-K kernel (K > 256) at the served shapes: the int8
-    # ring at k = 100 (K' = 400), the fp32 ring at k = 300, the merge of a
-    # k = 300 batch (C = K = 300, an all-+inf list first), and K = 4096
-    for (m, c, k, label, first) in ((128, 256, 400, "ring_int8_k100", False),
-                                    (128, 256, 300, "ring_fp32_k300", False),
-                                    (128, 300, 300, "merge_first_k300", True),
-                                    (128, 4096, 4096, "K4096_C4096", False)):
-        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
-        s[rng.random((m, c)) < 0.2] = np.inf
-        if first:
-            s = np.sort(s, axis=1)
-            run_s = np.full((m, k), np.inf, np.float32)
-        else:
-            run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
-        row = time_topk(rng, dev, s, run_s, label, smi, route=2)
-        timed.setdefault("running_topk_update_large_k", row)
-    # route 3 (K > 12288) at M = 8 (the served huge-k batch), C = 256 (the
-    # ring's chunk), K = 16384, then the served shapes: the ring at the
-    # int8 K' = 12292 and the merge of a k = 12289 batch
-    for (m, c, k, label, first) in ((8, 256, 16384, "ring_K16384", False),
-                                    (8, 256, 12292, "ring_int8_k3073", False),
-                                    (8, 12289, 12289, "merge_first_k12289", True)):
-        s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
-        s[rng.random((m, c)) < 0.2] = np.inf
-        if first:
-            s = np.sort(s, axis=1)
-            run_s = np.full((m, k), np.inf, np.float32)
-        else:
-            run_s = np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
-        row = time_topk(rng, dev, s, run_s, label, smi, route=3)
-        timed.setdefault("running_topk_update_huge_k", row)
+    # route 2 of the top-K kernel at the served shapes: the int8 ring at
+    # k = 100 (K' = 400), the fp32 ring at k = 300, the merge of a k = 300
+    # batch (C = K = 300, ascending parts: an all-+inf list first, a full
+    # one later), and K = 4096; route 3 (K > 12288) at M = 8 (the served
+    # huge-k batch): C = 256 (the ring's chunk) at K = 16384 and the int8
+    # K' = 12292, and the merge of a k = 12289 batch
+    for (m, c, k, label, part) in ((128, 256, 400, "ring_int8_k100", None),
+                                   (128, 256, 300, "ring_fp32_k300", None),
+                                   (128, 300, 300, "merge_first_k300", "first"),
+                                   (128, 300, 300, "merge_later_k300", "later"),
+                                   (128, 4096, 4096, "K4096_C4096", None),
+                                   (8, 256, 16384, "ring_K16384", None),
+                                   (8, 256, 12292, "ring_int8_k3073", None),
+                                   (8, 12289, 12289, "merge_first_k12289", "first"),
+                                   (8, 12289, 12289, "merge_later_k12289", "later")):
+        s, run_s = topk_dense(rng, m, c, k, part)
+        row = time_topk(rng, dev, s, run_s, label, smi, route=topk_update.route(k))
+        timed.setdefault({2: "running_topk_update_large_k",
+                          3: "running_topk_update_huge_k"}[topk_update.route(k)], row)
     return timed
+
+
+def topk_dense(rng, m, c, k, part=None):
+    """Scores [M, C] uniform on 0..100 with 20 % +inf and an ascending list
+    [M, K] of rounded scores (numpy); ``part`` "first" / "later": the fused
+    merge's parts, each row ascending, over an all-+inf or a full list."""
+    import numpy as np
+
+    s = rng.uniform(0, 100, size=(m, c)).astype(np.float32)
+    s[rng.random((m, c)) < 0.2] = np.inf
+    if part is not None:
+        s = np.sort(s, axis=1)
+    if part == "first":
+        return s, np.full((m, k), np.inf, np.float32)
+    return s, np.sort(np.round(rng.uniform(0, 100, size=(m, k))), axis=1).astype(np.float32)
 
 
 def time_topk(rng, dev, s, run_s, label, smi, **extra):
@@ -740,7 +801,10 @@ def time_topk(rng, dev, s, run_s, label, smi, **extra):
     b, by = bound_ms(nbytes, m * (k + c))
     name = {1: "running_topk_update", 2: "running_topk_update_large_k",
             3: "running_topk_update_huge_k"}[topk_update.route(k)]
-    row = dict(kernel=name, shape=label, M=m, C=c, K=k, ctas=m, **extra,
+    plan = topk_update.launched_plan(m, c, k)
+    assert plan == topk_update.plan(m, c, k), (label, plan, topk_update.plan(m, c, k))
+    row = dict(kernel=name, shape=label, M=m, C=c, K=k, ctas=plan.ctas,
+               launches_per_call=plan.launches, **extra,
                kernel_ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
                kernel_call_ms=call, plain_call_ms=plain_call, library_call_ms=lib_call,
                card=smi)
@@ -748,10 +812,11 @@ def time_topk(rng, dev, s, run_s, label, smi, **extra):
     return row
 
 
-def survivor_split(ex, queries, k):
-    """Serve ``queries`` once with the ring's top-K call wrapped here, and
-    count over its (row, launch) pairs how many candidates lie below the
-    row's run_s[K-1]: the survivors the kernel merges (it drops the rest
+def survivor_split(ex, queries, k, k_search=None):
+    """Serve ``queries`` once (at ``k_search``, the executor's default when
+    None) with the ring's top-K call wrapped here, and count over its (row,
+    launch) pairs how many candidates lie below the row's run_s[K-1] (the
+    ring's K is ``k``): the survivors the kernel merges (it drops the rest
     after one vote). Returns the split and the histogram of the counts."""
     import numpy as np
     import torch
@@ -770,7 +835,7 @@ def survivor_split(ex, queries, k):
 
     ops.running_topk_update = counting
     try:
-        ex.search_batch(queries)
+        ex.search_batch(queries, **({} if k_search is None else {"k": k_search}))
     finally:
         ops.running_topk_update = wrapped
     h = hist.cpu().numpy()
@@ -1145,7 +1210,7 @@ def serve_large_k(dev, smi, data, q128):
     import torch
 
     from repro_torch.data import recall_at_k
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, topk_update
     from repro_torch.serve import ExecutorConfig, HarmonyServer
 
     n_parts = data.n_segments + (data.delta_len > 0)
@@ -1172,8 +1237,10 @@ def serve_large_k(dev, smi, data, q128):
             check_int8_rows(dev, data, q128, res, k)
             recall = recall_at_k(res.ids, want_i)
             assert recall >= 0.98, f"int8 k={k} recall@{k} vs the oracle {recall}"
-            # the ring's K' = 400 is route 2, the merge's K = 100 route 1
-            assert launches["running_topk_update_large_k"] == ring.ring
+            # the ring's K' = 400 is route 2; the merge's K = 100 is route 2
+            # too above the route 1/2 boundary (topk_update.WARP_MAX_K)
+            assert launches["running_topk_update_large_k"] == (
+                launches["running_topk_update"] if topk_update.route(k) == 2 else ring.ring)
         assert merge == n_parts, f"large k {prec}: {merge} merge launches, {n_parts} parts"
         log(phase="serve_engine_large_k", precision=prec, nq=q128.shape[0], k=k,
             ring_k=k if prec == "fp32" else 4 * k, wall_ms=res.stats["wall_s"] * 1e3,
@@ -3537,6 +3604,10 @@ def main() -> int:
         splits[("fp32", f"{mesh[0]}x{mesh[1]}", 128 // mesh[1], 10)] = hist
         log(phase="topk_survivors", mesh=f"{mesh[0]}x{mesh[1]}", precision="fp32",
             nq=128, K=10, **split)
+        if mesh == (1, 1):      # the served k = 300 ring (route 2)
+            split, hist = survivor_split(ex, q_all[lo128:lo128 + 128], 300, k_search=300)
+            splits[("fp32_k300", "1x1", 128, 300)] = hist
+            log(phase="topk_survivors", mesh="1x1", precision="fp32", nq=128, K=300, **split)
         del ex
         torch.cuda.empty_cache()
 
@@ -3644,6 +3715,10 @@ def main() -> int:
         splits[("int8", f"{mesh[0]}x{mesh[1]}", 128 // B, 40)] = hist
         log(phase="topk_survivors", mesh=f"{mesh[0]}x{mesh[1]}", precision="int8",
             nq=128, K=40, **split)
+        if mesh == (1, 1):      # the served int8 k = 100 ring, K' = 400 (route 2)
+            split, hist = survivor_split(ex, q_all[lo128:lo128 + 128], 400, k_search=100)
+            splits[("int8_k100", "1x1", 128, 400)] = hist
+            log(phase="topk_survivors", mesh="1x1", precision="int8", nq=128, K=400, **split)
         del ex
         torch.cuda.empty_cache()
 

@@ -428,9 +428,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_topk_limits_raise_before_any_launch():
     """The top-K kernel takes any C and any K up to its int index,
-    2^31 - 1: route 1 up to K = 256, route 2 up to MAX_K = 12288 (what its
-    shared memory holds: 16 K + 8 W bytes with a 2048-column window, 212 KB
-    of the H100's 227 KB), route 3 above it (the list in global memory).
+    2^31 - 1: route 1 up to K = WARP_MAX_K (64, where route 2 starts to
+    win), route 2 up to MAX_K = 12288 (what its shared memory holds:
+    16 K + 16 W bytes with a 1024-column window, 208 KB of the H100's
+    227 KB), route 3 above it (the list in global memory).
     K < 1, and K or C past the int index, raise ``ValueError`` before any
     launch, on every device, with no switch to the plain version; the
     executor (its ring's K, k·rerank_factor in the int8 tier) and the fused
@@ -441,8 +442,11 @@ def test_topk_limits_raise_before_any_launch():
 
     big = 2 ** 31 - 1
     assert (topk_update.MAX_K, topk_update.MAX_C, topk_update.MAX_INDEX) == (12288, big, big)
-    assert 16 * topk_update.MAX_K + 8 * 2048 <= 232_448
-    assert [topk_update.route(k) for k in (1, 256, 257, 12288, 12289, big)] == [1, 1, 2, 2, 3, 3]
+    assert topk_update.plan(1, 4096, topk_update.MAX_K).smem_bytes == 16 * 12288 + 16 * 1024
+    assert topk_update.plan(1, 4096, topk_update.MAX_K).smem_bytes <= 232_448 - 1024
+    assert topk_update.WARP_MAX_K == 64
+    assert [topk_update.route(k) for k in (1, 64, 65, 256, 257, 12288, 12289, big)] == \
+        [1, 1, 2, 2, 2, 2, 3, 3]
     topk_update.check_limits(12289, 8)
     topk_update.check_limits(big, big)
     for k, c in ((0, 8), (big + 1, 8), (10, 0), (10, big + 1)):
@@ -480,13 +484,16 @@ def test_topk_limits_raise_before_any_launch():
 
 @pytest.mark.cuda
 def test_cuda_topk_above_64_and_merge_shapes():
-    """Four and eight list entries a lane (K = 80, 256) and the served
-    merge's shape (C = K = k), bit-equal to the plain version."""
+    """K = 80 and 256 (route 2 since the boundary moved to 64; route 1 held
+    them with four and eight list entries a lane), the served merge's shape
+    (C = K = k) and K at the boundary, bit-equal to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     cases = [(130, c, k) for k in (80, 256) for c in (80, 256, 4096)]
     cases += [(m, k, k) for m in (1, 128, 160) for k in (10, 20)]
+    cut = topk_update.WARP_MAX_K         # the route 1/2 boundary, route 1's side
+    cases += [(128, 256, cut), (128, cut, cut)]
     for m, c, k in cases:
         for kind in ("uniform", "path", "run_last", "finite_chunk"):
             for run_filled in (True, False):
@@ -499,11 +506,29 @@ def test_cuda_topk_above_64_and_merge_shapes():
                     assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
 
 
+def _cuda_topk_equal(cases, kinds, dev):
+    """Each (m, c, k) at each input kind of ``test_torch_topk_plan._mk``,
+    with full and broadcast ids, bit-equal to the plain version."""
+    from test_torch_topk_plan import _mk as _mk_branch
+
+    for m, c, k in cases:
+        for kind in kinds:
+            s, ids, rs, ri = (a.to(dev) for a in _t(*_mk_branch(m, c, k, kind, seed=m + c + k)))
+            for ids_form in (ids, ids[0].expand(m, c)):
+                gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
+                ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
+                assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
+
+
 @pytest.mark.cuda
 def test_cuda_huge_k_route():
-    """The top-K kernel's route 3 (K > 12288: one CTA a row, the list in
-    global memory, merged window by window into the output or a scratch
-    list) bit-equal to the plain version, with full and broadcast ids."""
+    """The top-K kernel's route 3 (K > 12288: tiles of output positions a
+    CTA; above 2048 columns, window runs merged in passes through a
+    scratch) bit-equal to the plain version, with full and broadcast ids;
+    also ascending candidates (the merge's), survivors at and one above the
+    one-warp cut, and rows with no survivor beside full ones, at the
+    merge's C = K for M = 1, 8, 128, past one merge pass and past one
+    chunk of columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -519,16 +544,26 @@ def test_cuda_huge_k_route():
                         gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
                         ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
                         assert torch.equal(gs, ws) and torch.equal(gi, wi), (c, k, kind)
+    _cuda_topk_equal([(m, c, c) for m in (1, 8, 128) for c in (12289, 16384)]
+                     + [(3, 256, 12289), (3, 4096, 20000)],
+                     ("ascending", "few", "mixed"), dev)
+    # two and three merge passes (3 and 5 windows of 8192 columns), and two
+    # chunks of 2^18 columns (the second through the scratch list)
+    _cuda_topk_equal([(8, 20000, 20000), (3, 40000, 12289), (1, 300_000, 12289)],
+                     ("ascending", "few", "mixed"), dev)
     counts = ops.launch_counts()
     assert counts["running_topk_update_huge_k"] == counts["running_topk_update"] > 0
 
 
 @pytest.mark.cuda
 def test_cuda_large_k_route_and_bf16_rows():
-    """The top-K kernel's route 2 (K > 256: one CTA a row, the list in
-    shared memory, C in windows of 2048) bit-equal to the plain version,
-    up to its limit; and the distance kernel's bf16-row route against its
-    plain version at the f32 route's rule."""
+    """The top-K kernel's route 2 (K above ``WARP_MAX_K``: one CTA a row,
+    the list in shared memory, C in windows of up to 2048) bit-equal to the
+    plain version, up to its limit, also on ascending candidates, survivors
+    at and one above the one-warp cut, rows with no survivor beside full
+    ones, the merge's C = K at M = 1, 8, 128 and K one above the boundary;
+    and the distance kernel's bf16-row route against its plain version at
+    the f32 route's rule."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -545,6 +580,10 @@ def test_cuda_large_k_route_and_bf16_rows():
                     gs, gi = topk_update.running_topk_update(s, ids_form, rs, ri, k=k)
                     ws, wi = ref.running_topk_ref(s, ids_form, rs, ri, k=k)
                     assert torch.equal(gs, ws) and torch.equal(gi, wi), (m, c, k, kind)
+    cut = topk_update.WARP_MAX_K
+    _cuda_topk_equal([(m, c, c) for m in (1, 8, 128) for c in (300, 4096)]
+                     + [(128, 256, cut + 1), (128, cut + 1, cut + 1), (130, 8192, 4096)],
+                     ("ascending", "few", "mixed"), dev)
     assert ops.launch_counts()["running_topk_update_large_k"] == \
         ops.launch_counts()["running_topk_update"] > 0
     for m, n, d, tm, tn, tk in [(128, 256, 128, 128, 128, 128), (64, 256, 64, 128, 128, 128),
