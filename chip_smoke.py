@@ -119,7 +119,7 @@ bf16-row route at the f32 route's rule; phase 2's timing covers every
 route; every top-K shape checked or timed launches as
 ``topk_update.plan`` says (the source's ``topk_update_plan``). After
 phase 4b the top-K kernel is also timed on path-shaped rows of the served
-k = 300 and int8 k = 100 rings. Each of phases 3–20 resets the launch
+k = 300 and int8 k = 100 rings. Each of phases 3–21 resets the launch
 counts before it and reads them after it.
 
 13-16. The serving plane (``serve_plane``) on a plane of the index as one
@@ -147,8 +147,9 @@ counts before it and reads them after it.
     HuBERT-XLarge (frames) at 2 layers, card against CPU. (b) Qwen1.5-4B at
     its published width and depth in bf16 from the seeded init: 8 prompts
     of 1024 tokens through ``prefill``, a 1152-position cache filled by
-    teacher-forced decode (its last logits against ``prefill``'s), 64
-    greedy steps with finite logits, 8 more under the profiler. One
+    teacher-forced decode over the prompts' first 256 tokens (its last
+    logits against a prefill of those), 64 greedy steps with finite
+    logits, 8 more under the profiler. One
     ``{"lm": ...}`` line: times, tokens/s, bytes, peak memory, the idle
     share and the bounds (prefill: 2 · N · tokens + attention over the
     989 TFLOP/s bf16 rate; a decode step: weights + attended KV over
@@ -181,7 +182,25 @@ counts before it and reads them after it.
     sLSTM layer's prefill time. One ``{"lm_recurrent": ...}`` line with
     the bounds (bf16 GEMMs at 989 TFLOP/s plus the f32 chunk work at 67;
     a step reads the weights and reads and writes the recurrent state).
-21. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+21. The training path (``serve_lm_train``); no hand-written kernel, launch
+    counts 0. (a) Qwen1.5-4B and OLMoE-1B-7B at 2 layers and xLSTM-1.3B
+    at 8, published widths, fp32 with TF32 off (``train_fp32``): the
+    card's ``loss_fn`` and every gradient leaf against the CPU's on the
+    same params and 2 × 64 tokens, at 1e-3 in units of the leaf's max |g|
+    (at least 1e-4 of the tree's); one AdamW and one Adafactor
+    ``opt_update`` on the card against the CPU's from the same gradients
+    (1e-5); μ after a step at 2 microbatches against 1. (b) Qwen1.5-4B as
+    published in bf16 with AdamW and remat (``lm_train``): 2 warm-up, 8
+    timed, 1 split in its halves and 2 profiled steps of ``train_loop``'s
+    in-place step on
+    ``TokenPipeline(151936, 1024, 4)``; finite losses and grad norms, the
+    last 3 losses below the first; step time, tokens/s, peak memory
+    beside its prediction, the idle share and the bound (4 × the prefill
+    FLOPs at 989 TFLOP/s plus the optimizer's bytes at 3.35 TB/s). (c)
+    ``python -m repro_torch.launch.train --arch qwen1.5-4b --smoke`` for 20
+    steps, then 10 more resumed from its checkpoint (``train_launch``).
+    One ``{"train": ...}`` line.
+22. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -2078,13 +2097,14 @@ def request_trace(ds, n_req, seed=0):
     return t, np.concatenate([qu, qh]).astype(np.float32)
 
 
-def profiled(fn):
+def profiled(fn, by_name=None):
     """Run ``fn`` under the profiler (device activity only: a window of a
     few batches holds ~10^5 kernels) and return (its result, the card's
     busy ms, the window's wall ms). Busy is the union of the device
     events' spans, read from the raw trace (a kernel launched by a thread
     the profiler has no operator for is kept); the wall starts once the
-    profiler runs."""
+    profiler runs. ``by_name``, a dict, receives each device event name's
+    summed ms."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2093,8 +2113,12 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA]
+    if by_name is not None:
+        for e in events:
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events)
     busy_ns, end = 0, None
     for a, b in spans:
         if end is None or a > end:
@@ -2553,15 +2577,18 @@ BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 tensor-core rate
 LM_TOL = 1e-3                 # fp32 on the card against the CPU / its own forward
 FILL_MAX_ABS = 0.2            # bf16 fill against prefill: about twice the 0.09375 measured
 FILL_ARGMAX_AGREE = 7 / 8     # bf16 fill against prefill: rows whose argmax agrees
+FILL_TOKENS = 256             # teacher-forced fill: Qwen1.5 and the recurrent models (PERF.md §6)
 RING_F64_TOL = 1e-2           # ring decode (fp32) against forward in f64: 10× the 0.00098 measured
 
 
-def _leaves(tree, name=""):
-    """(key, leaf) pairs of a nested dict; a tuple's leaves under its key."""
+def _leaves(tree, name="", full=False):
+    """(key, leaf) pairs of a nested dict; a tuple's leaves under its key.
+    With ``full``, a key is the leaf's whole path, joined by ``/``."""
     if isinstance(tree, dict):
-        return [kv for k, v in tree.items() for kv in _leaves(v, k)]
+        return [kv for k, v in tree.items()
+                for kv in _leaves(v, f"{name}/{k}" if full else k, full)]
     if isinstance(tree, tuple):
-        return [kv for v in tree for kv in _leaves(v, name)]
+        return [kv for v in tree for kv in _leaves(v, name, full)]
     return [(name, tree)]
 
 
@@ -2881,7 +2908,12 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False, fill=No
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
 
-    fill_last = last if fill == S else prefill(params, cfg, {"tokens": prompts[:, :fill]})
+    fill_prefill_routes = prefill_routes
+    if fill == S:
+        fill_last = last
+    else:                                   # the routes of the prefill it is held against
+        with RouteLog() as fill_prefill_routes:
+            fill_last = prefill(params, cfg, {"tokens": prompts[:, :fill]})
     cache = init_cache(cfg, B, max_len, device=dev)
     cache_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(cache))
     t0 = time.perf_counter()
@@ -2897,8 +2929,8 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False, fill=No
         routing = rule(params, prompts[:, :fill], lg, fill_last)
         fill_vs_prefill, argmax_agree = routing["max_abs"], routing["argmax_agree"]
     elif cfg.is_moe:
-        routing = moe_rule(lg, fill_last, fill_routes.last_rows(B), prefill_routes.last_rows(B),
-                           "fill against prefill")
+        routing = moe_rule(lg, fill_last, fill_routes.last_rows(B),
+                           fill_prefill_routes.last_rows(B), "fill against prefill")
         fill_vs_prefill, argmax_agree = routing["max_abs"], routing["argmax_agree"]
     else:
         fill_vs_prefill = float((lg - fill_last).abs().max())
@@ -2978,8 +3010,11 @@ def serve_lm(dev, smi):
     and Qwen2-VL-7B at 2 layers, HuBERT-XLarge at 2, Gemma3-27B at 8 (one
     5 + 1 unit and the 2 tail locals, window 1024, decoded over 1088
     positions); (b) Qwen1.5-4B at its published width and depth in bf16
-    (``lm_served``). The path runs no hand-written kernel: the launch counts
-    stay 0. Prints the ``{"lm": ...}`` line."""
+    (``lm_served``, the fill over the prompts' first FILL_TOKENS), then 8
+    steps at the cache's last positions (``decode_at_length``) and the
+    prefill by unbind against selects (``unbind_against_selects``). The
+    path runs no hand-written kernel: the launch counts stay 0. Prints the
+    ``{"lm": ...}`` line."""
     import torch
 
     from repro_torch import configs
@@ -2997,7 +3032,14 @@ def serve_lm(dev, smi):
     errs = {k: e for k, (e, _) in errs.items()}
     log(phase="lm_fp32", tol=LM_TOL, max_abs_err=errs, rel_err=rel, ring_witness=witness,
         seconds=time.perf_counter() - t_phase, card=smi)
-    served = lm_served(dev, configs.get_config("qwen1.5-4b"))
+    qwen = configs.get_config("qwen1.5-4b")
+    served, st = lm_served(dev, qwen, fill=FILL_TOKENS, keep=True)
+    del st["filled"]
+    served["at_max_len"] = decode_at_length(dev, qwen, st["params"], 8, served["max_len"])
+    served["prefill_unbind_against_selects"] = unbind_against_selects(
+        qwen, st["params"], st["prompts"])
+    del st
+    torch.cuda.empty_cache()
     counts = ops.launch_counts()
     assert not any(counts.values()), counts
     print(json.dumps({"lm": dict(
@@ -3063,21 +3105,25 @@ def lm_moe_fp32_checks(dev, olmoe, S=64, ep=2):
 
 def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=8):
     """Phase 19b (``lm_moe``): ``cfg`` served in bf16 through ``RunCtx()``
-    (``lm_served``: prefill, the fill held against it, greedy steps, the
-    profiled 8), then through ``RunCtx(mesh=VirtualMesh(ep))`` at the
-    default capacity: ``prefill`` (warm, then timed) with its dropped slots
-    per layer and its last logits against the dense path's (information
-    only); ``ep_steps`` decode steps on a copy of the filled cache beside
-    the dense path's on the same tokens, where no slot can drop (B = ep:
+    (``lm_served``: prefill, the fill over the prompts' first FILL_TOKENS
+    held against a prefill of those, greedy steps, the profiled 8), then
+    through ``RunCtx(mesh=VirtualMesh(ep))`` at the default capacity:
+    ``prefill`` (warm, then timed) with its dropped slots per layer and its
+    last logits against the dense path's (information only); ``ep_steps``
+    decode steps on a copy of the filled cache from the prompts' next
+    token beside the dense path's on the same tokens, where no slot can
+    drop (B = ep:
     one token a rank, cap_send = k), each step held against the dense
     step by ``moe_rule``; then the same EP steps again, timed, on another
-    copy. Returns the numbers of the ``lm_moe`` line."""
+    copy; then 8 dense steps at the cache's last positions
+    (``decode_at_length``). Returns the numbers of the ``lm_moe`` line."""
     import torch
 
     from repro_torch.models import RunCtx, VirtualMesh, decode_step, moe, prefill
     from repro_torch.models.lm import map_tree
 
-    out, st = lm_served(dev, cfg, B, S, max_len, steps, keep=True)
+    fill = FILL_TOKENS
+    out, st = lm_served(dev, cfg, B, S, max_len, steps, keep=True, fill=fill)
     params, prompts, last, cache = st["params"], st["prompts"], st["last"], st["filled"]
     del st
     log = []
@@ -3093,10 +3139,10 @@ def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=
     assert bool(torch.isfinite(last_ep).all()), "EP prefill gave a non-finite logit"
 
     ep_cache, timed_cache = map_tree(cache, torch.clone), map_tree(cache, torch.clone)
-    toks, log[:] = [last.argmax(-1)], []
+    toks, log[:] = [prompts[:, fill]], []                  # the prompt's next token
     step_rule = []
     for i in range(ep_steps):
-        pos = torch.full((B,), S + i, device=dev)
+        pos = torch.full((B,), fill + i, device=dev)
         with RouteLog() as dense_routes:
             lg, _ = decode_step(params, cfg, toks[-1], pos, cache)
         with RouteLog() as ep_routes:
@@ -3109,7 +3155,8 @@ def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(ep_steps):
-        decode_step(params, cfg, toks[i], torch.full((B,), S + i, device=dev), timed_cache, ctx)
+        decode_step(params, cfg, toks[i], torch.full((B,), fill + i, device=dev), timed_cache,
+                    ctx)
     torch.cuda.synchronize()
     ep_s = time.perf_counter() - t0
 
@@ -3118,7 +3165,7 @@ def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=
     param_bytes = out["param_bytes"]
     flops_ep, _ = lm_bounds(cfg, params, B, S, 0, expert_rows=E * cap_e)
     flops_routed, _ = lm_bounds(cfg, params, B, S, 0, expert_rows=B * S * k)
-    _, ep_step_bytes = lm_bounds(cfg, params, B, S, S + (ep_steps + 1) / 2)
+    _, ep_step_bytes = lm_bounds(cfg, params, B, S, fill + (ep_steps + 1) / 2)
     out.update(
         experts=E, experts_per_token=k,
         prefill_top_k_flops=flops_routed,
@@ -3143,7 +3190,9 @@ def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=
             decode_vs_dense_argmax_agree_min=min(r["argmax_agree"] for r in step_rule),
             decode_rows_routed_apart=[r["rows_routed_apart"] for r in step_rule],
         ))
-    del params, prompts, last, cache, ep_cache, timed_cache, last_ep, lg, lg_ep
+    del ep_cache, timed_cache
+    out["at_max_len"] = decode_at_length(dev, cfg, params, B, max_len)
+    del params, prompts, last, cache, last_ep, lg, lg_ep
     torch.cuda.empty_cache()
     return out
 
@@ -3262,7 +3311,6 @@ def serve_lm_moe(dev, smi):
         card=smi)}, default=float), flush=True)
 
 
-REC_FILL = 256                # recurrent fill: the prompts' first 256 tokens (PERF.md §6)
 FILL_WITNESS_FACTOR = 1.5     # fill vs fp32 over prefill vs fp32: 1.06 measured (PERF.md §6)
 
 
@@ -3389,6 +3437,38 @@ def decode_at_length(dev, cfg, params, B, max_len, steps=8):
     return out
 
 
+def unbind_against_selects(cfg, params, prompts):
+    """``prefill`` ms with ``forward``'s one ``torch.unbind`` a stacked
+    leaf against the per-unit ``_at`` selects it replaced, alternated
+    (unbind, selects, selects, unbind) on the same prompts, after the warm
+    prefill of ``lm_served``; and the max |Δ| of the two paths' last
+    logits (the same operations: 0 for a model without experts). Whether
+    the split costs inference anything."""
+    import torch
+
+    from repro_torch.models import lm, prefill
+
+    def selects(tree):
+        leaf = tree
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        return [lm._at(tree, i) for i in range(leaf.shape[0])]
+
+    unbind, ms, last = lm._unstack, {"unbind": [], "selects": []}, {}
+    try:
+        for name in ("unbind", "selects", "selects", "unbind"):
+            lm._unstack = unbind if name == "unbind" else selects
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last[name] = prefill(params, cfg, {"tokens": prompts})
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        lm._unstack = unbind
+    return dict(unbind_ms=ms["unbind"], selects_ms=ms["selects"],
+                max_abs_diff=float((last["unbind"] - last["selects"]).abs().max()))
+
+
 def slstm_prefill_ms(dev, cfg, params, B, S):
     """Device-synchronised ms of one sLSTM layer's mixer over B × S tokens
     (a step-by-step loop on the host), after one untimed call."""
@@ -3413,10 +3493,11 @@ def serve_lm_recurrent(dev, smi, long_len=4224):
     fp32. (b) Each as published in bf16 through ``lm_served``: the ``lm``
     cell's traffic (8 prompts of 1024 tokens, prefill, a 1152-position
     cache, 64 greedy steps, 8 under the profiler) with the fill over the
-    prompts' first REC_FILL tokens, held against a prefill of those;
+    prompts' first FILL_TOKENS tokens, held against a prefill of those;
     then ``decode_at_length`` at ``long_len`` positions (a recurrent state
-    is the same at any length, Zamba2's shared KV grows), and for xLSTM
-    one sLSTM layer's prefill time. The path runs no hand-written kernel:
+    is the same at any length, Zamba2's shared KV grows), for xLSTM one
+    sLSTM layer's prefill time, and the prefill by unbind against selects
+    (``unbind_against_selects``). The path runs no hand-written kernel:
     the launch counts stay 0. Prints the ``{"lm_recurrent": ...}`` line."""
     import torch
 
@@ -3439,11 +3520,13 @@ def serve_lm_recurrent(dev, smi, long_len=4224):
     served = {}
     for cfg in (xl, zb):
         t0 = time.perf_counter()
-        out, st = lm_served(dev, cfg, fill=REC_FILL, keep=True, rule=recurrent_fill_rule(cfg))
+        out, st = lm_served(dev, cfg, fill=FILL_TOKENS, keep=True, rule=recurrent_fill_rule(cfg))
         del st["filled"]
         out["long"] = decode_at_length(dev, cfg, st["params"], 8, long_len)
         if "slstm" in st["params"]["units"]:
             out["slstm_layer_prefill_ms"] = slstm_prefill_ms(dev, cfg, st["params"], 8, 1024)
+        out["prefill_unbind_against_selects"] = unbind_against_selects(
+            cfg, st["params"], st["prompts"])
         out["seconds"] = time.perf_counter() - t0
         served[cfg.name] = out
         del st
@@ -3454,8 +3537,296 @@ def serve_lm_recurrent(dev, smi, long_len=4224):
     print(json.dumps({"lm_recurrent": dict(
         models=served, fp32_max_abs_err=errs, fp32_rel_err=rel, fp32_logit_scale=scales,
         fp32_tol=LM_TOL, fill_witness_factor=FILL_WITNESS_FACTOR,
-        fill_tokens=REC_FILL, fill_max_abs_limit=FILL_MAX_ABS,
+        fill_tokens=FILL_TOKENS, fill_max_abs_limit=FILL_MAX_ABS,
         fill_argmax_agree_limit=FILL_ARGMAX_AGREE, tf32=torch.backends.cuda.matmul.allow_tf32,
+        kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
+        card=smi)}, default=float), flush=True)
+
+
+TRAIN_TOL = 1e-3             # a gradient leaf, card against CPU, in units of its max |g|
+OPT_TOL = 1e-5               # opt_update, card against CPU, in units of each leaf's max |value|
+GRAD_FLOOR = 1e-4            # a gradient leaf's unit: at least this share of the tree's max |g|
+
+
+def tree_err(got, want, what, tol, floor=0.0):
+    """The largest max |got − want| / max |want| over the leaves of two
+    trees (compared in f32 on ``got``'s device), held at ``tol``;
+    returns (it, its leaf's path). With ``floor``, a leaf's unit is at
+    least ``floor`` × the tree's largest |want|: a gradient that is 0 but
+    for roundoff (the key bias's: a bias on every key of a query leaves
+    its softmax unchanged) has no scale of its own."""
+    import torch
+
+    got = dict(_leaves(got, full=True))
+    dev = next(iter(got.values())).device
+    want = {k: w.to(dev).float() for k, w in _leaves(want, full=True)}
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = (0.0, None)
+    for name, g in got.items():
+        w, g = want[name], g.float()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), (what, name)
+        unit = max(float(w.abs().max()), floor * top, 1e-30)
+        worst = max(worst, (float((g - w).abs().max()) / unit, name), key=lambda e: e[0])
+    assert worst[0] <= tol, f"{what}: {worst}"
+    return worst
+
+
+def train_fp32_checks(dev, qwen, olmoe, xlstm, B=2, S=64):
+    """Phase 21a (``train_fp32``): full widths at reduced depth, fp32 with
+    TF32 off, B × S tokens of ``TokenPipeline``'s stream. (1) For each
+    config the card's ``loss_fn`` and every gradient leaf against the
+    CPU's on the same params (OLMoE through the dense path, its aux in the
+    loss; xLSTM in chunks of 16), each leaf at TRAIN_TOL in units of its
+    max |g|. (2) From Qwen's gradients, one AdamW and one Adafactor
+    ``opt_update`` of its units and final norm on the card against the
+    CPU's (OPT_TOL). (3) Qwen's μ
+    after a ``make_train_step`` step at 2 microbatches against 1
+    (TRAIN_TOL). Returns the numbers of the ``train_fp32`` line."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import RunCtx, init_params
+    from repro_torch.models.lm import map_tree
+    from repro_torch.train import OptConfig, init_opt_state, make_train_step, opt_update
+    from repro_torch.train.train_loop import _grads_of
+
+    out, kept = {}, None
+    for name, cfg, ctx in (("qwen", qwen, RunCtx()), ("olmoe", olmoe, RunCtx()),
+                           ("xlstm", xlstm, RunCtx(rec_chunk=16))):
+        t0 = time.perf_counter()
+        batch = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S,
+                              global_batch=B).batch_for_step(0)
+        on = lambda d, b=batch: {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        params = init_params(cfg, 0, device=dev)
+        cpu = map_tree(params, lambda t: t.cpu())
+        loss, metrics, grads = _grads_of(params, cfg, on(dev), ctx)
+        torch.cuda.synchronize()
+        t_cpu = time.perf_counter()
+        want_loss, want_metrics, want = _grads_of(cpu, cfg, on("cpu"), ctx)
+        cpu_s = time.perf_counter() - t_cpu
+        rel = {k: abs(float(metrics[k]) - float(want_metrics[k]))
+               / max(abs(float(want_metrics[k])), 1.0) for k in metrics}
+        assert max(rel.values()) <= LM_TOL, (name, rel)
+        worst = tree_err(grads, want, f"{name} gradients", TRAIN_TOL, GRAD_FLOOR)
+        out[name] = dict(loss=float(loss), cpu_loss=float(want_loss),
+                         aux=float(metrics["aux"]), metrics_rel_err=rel,
+                         grad_leaves=len(_leaves(grads)), grad_max_rel_err=worst[0],
+                         grad_worst_leaf=worst[1], cpu_seconds=cpu_s,
+                         seconds=time.perf_counter() - t0)
+        if name == "qwen":
+            kept = (cfg, params, cpu, grads, on(dev))
+        del params, cpu, grads, want
+        torch.cuda.empty_cache()
+
+    cfg, params, cpu, grads, batch = kept
+    t0 = time.perf_counter()
+    # the units (stacked [2, ...] leaves, factored and not, one over the
+    # in-place slice) and the final norm: the embedding and head are the
+    # same arithmetic on larger leaves, and 5× the CPU's time
+    sub = lambda tree: {k: tree[k] for k in ("units", "final_norm")}
+    p_sub, g_sub, c_sub = sub(params), sub(grads), sub(cpu)
+    g_cpu = map_tree(g_sub, lambda t: t.cpu())
+    for opt_name in ("adamw", "adafactor"):
+        ocfg = OptConfig(name=opt_name, lr=1e-3)
+        p_dev, s_dev = opt_update(p_sub, g_sub, init_opt_state(p_sub, ocfg), ocfg)
+        p_cpu, s_cpu = opt_update(c_sub, g_cpu, init_opt_state(c_sub, ocfg), ocfg)
+        assert int(s_dev["step"]) == int(s_cpu["step"]) == 1
+        out[f"opt_{opt_name}"] = dict(
+            params=tree_err(p_dev, p_cpu, f"{opt_name} params", OPT_TOL),
+            state=tree_err(s_dev, s_cpu, f"{opt_name} state", OPT_TOL))
+        del p_dev, s_dev, p_cpu, s_cpu
+    out["opt_params"] = sum(t.numel() for _, t in _leaves(p_sub))
+    out["opt_seconds"] = time.perf_counter() - t0
+    del cpu, g_cpu, grads, p_sub, g_sub, c_sub
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ocfg = OptConfig(lr=1e-3)
+    mus = []
+    for mb in (1, 2):
+        _, o, _ = make_train_step(cfg, ocfg, RunCtx(), mb)(params, init_opt_state(params, ocfg),
+                                                           batch)
+        mus.append(o["mu"])
+        del o
+    out["microbatch_2_vs_1_mu"] = tree_err(mus[1], mus[0], "mu at 2 microbatches", TRAIN_TOL,
+                                           GRAD_FLOOR)
+    out["microbatch_seconds"] = time.perf_counter() - t0
+    del params, mus
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(dev, cfg, B=4, S=1024, warm=2, timed=8, traced=2):
+    """Phase 21b (``train``): ``cfg`` as published (its bf16, AdamW from
+    ``cfg.optimizer``, ``cfg.remat`` on, ``RunCtx()``) from the port's
+    seeded init, trained on ``TokenPipeline(vocab, S, B, seed=0)`` by
+    ``train_loop``'s in-place step (``make_inplace_train_step``): ``warm``
+    steps, ``timed`` steps (host clock, each ending in a synchronize), one
+    step timed in its halves (loss and gradients; the in-place update),
+    then ``traced`` under the profiler (idle share, device ms by kernel
+    name). Every loss and grad norm
+    must be finite and the mean of the last 3 losses below the first.
+    The bound of a step: 4 × the prefill FLOPs of ``lm_bounds`` (forward,
+    the remat's recompute, a backward of 2×) over 989 TFLOP/s, plus the
+    optimizer's bytes over 3.35 TB/s (params and gradients read, the
+    gradients twice, μ and ν read and written, params written). Returns
+    the numbers of the ``train`` line."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import RunCtx, init_params
+    from repro_torch.train import OptConfig, init_opt_state
+    from repro_torch.train.optimizer import opt_update_
+    from repro_torch.train.train_loop import _value_and_grads, make_inplace_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=dev)
+    ocfg = OptConfig(name=cfg.optimizer)
+    opt = init_opt_state(params, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for _, t in _leaves(tree))
+    param_bytes, opt_bytes = nbytes(params), nbytes(opt)
+    unit_bytes = nbytes(params["units"])
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B, seed=0)
+    step = make_inplace_train_step(cfg, ocfg, RunCtx())
+    losses, gnorms, step_ms = [], [], []
+
+    def run(i):
+        metrics = step(params, opt, pipe.batch_for_step(i))
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    # one step in its two halves: the loss and gradients, then the update
+    split = {}
+    grads_of = _value_and_grads(cfg, ocfg, RunCtx(), 1)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_for_step(warm + timed).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics, grads = grads_of(params, batch)
+    torch.cuda.synchronize()
+    split["loss_and_grads_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    opt_update_(params, grads, opt, ocfg)
+    torch.cuda.synchronize()
+    split["optimizer_ms"] = (time.perf_counter() - t0) * 1e3
+    losses.append(float(metrics["loss"]))
+    gnorms.append(float(opt["gnorm"]))
+    del grads, batch
+    by_name = {}
+    _, busy_ms, wall_ms = profiled(lambda: [run(warm + timed + 1 + i) for i in range(traced)],
+                                   by_name)
+    short = {}                              # names cut to 90 characters, their times summed
+    for name, ms in by_name.items():
+        short[name[:90]] = short.get(name[:90], 0.0) + ms
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:15]
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
+    assert np.mean(losses[-3:]) < losses[0], losses
+    assert int(opt["step"]) == warm + timed + 1 + traced
+    flops, _ = lm_bounds(cfg, params, B, S, 0)
+    grad_bytes = param_bytes
+    opt_traffic = 2 * param_bytes + 2 * grad_bytes + 2 * 2 * 4 * n_params
+    bound_ms = (4 * flops / BF16_FLOP_PER_S + opt_traffic / HBM_BYTES_PER_S) * 1e3
+    med = float(np.median(step_ms[warm:]))
+    out = dict(
+        model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        dtype=cfg.dtype, optimizer=cfg.optimizer, lr=ocfg.lr, remat=cfg.remat,
+        remat_policy=RunCtx().remat_policy, batch=B, seq=S, params=n_params, init_s=init_s,
+        param_bytes=param_bytes, opt_bytes=opt_bytes, grad_bytes=grad_bytes,
+        peak_allocated_bytes=peak,
+        # the steady params + moments + gradients, and the units' gradients
+        # stacked once beside their per-unit slices (PERF.md §6)
+        peak_predicted_bytes=param_bytes + opt_bytes + grad_bytes + unit_bytes,
+        step_ms_warm=step_ms[:warm], step_ms=step_ms[warm:], step_ms_median=med,
+        tokens_per_s=B * S / (med / 1e3), losses=losses, grad_norms=gnorms,
+        flops_per_step=4 * flops, optimizer_bytes_per_step=opt_traffic,
+        bound_ms=bound_ms, bound_gemm_ms=4 * flops / BF16_FLOP_PER_S * 1e3,
+        bound_optimizer_ms=opt_traffic / HBM_BYTES_PER_S * 1e3, bound_share=bound_ms / med,
+        idle_share_traced=idle_share(busy_ms, wall_ms), busy_ms_traced=busy_ms,
+        wall_ms_traced=wall_ms, traced_steps=traced, **split,
+        top_device_ms_per_step={k: v / traced for k, v in top})
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_launch(smi, steps=20, resume_steps=10):
+    """Phase 21c (``train_launch``): ``python -m repro_torch.launch.train
+    --arch qwen1.5-4b --smoke --steps 20`` with a checkpoint directory under
+    ``build/``, then ``--steps 10`` again: the second run must resume from
+    step 20 and end on a finite loss. The directory is removed."""
+    import os
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    ckpt = Path(tempfile.mkdtemp(prefix="train_launch_", dir=root))
+    env = dict(os.environ, PYTHONPATH=str(root.parent / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen1.5-4b",
+           "--smoke", "--ckpt-dir", str(ckpt)]
+    runs = []
+    try:
+        for n in (steps, resume_steps):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + ["--steps", str(n)], env=env, capture_output=True,
+                                  text=True, timeout=600)
+            lines = proc.stdout.strip().splitlines()
+            assert proc.returncode == 0, f"train launch exited {proc.returncode}: " \
+                                         f"{proc.stderr[-3000:]}"
+            final = float(lines[-1].split()[-1])
+            assert lines[-1].startswith("final loss") and np.isfinite(final), lines
+            runs.append(dict(steps=n, seconds=time.perf_counter() - t0, final_loss=final,
+                             stdout=lines))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    assert f"resumed from step {steps}" in runs[1]["stdout"], runs[1]["stdout"]
+    return dict(cmd=" ".join(cmd[1:4] + cmd[4:6]), runs=runs, card=smi)
+
+
+def serve_lm_train(dev, smi):
+    """Phase 21 (``lm_train``): the LM substrate's training path on the card.
+    (a) ``train_fp32_checks``: Qwen1.5-4B and OLMoE-1B-7B at 2 layers,
+    xLSTM-1.3B at 8 (7 mLSTM + 1 sLSTM), published widths, fp32;
+    (b) ``lm_train``: Qwen1.5-4B as published, bf16, AdamW, remat;
+    (c) ``train_launch``: the launcher, trained and resumed in two
+    subprocesses. The path runs no hand-written kernel: the launch counts
+    stay 0. Prints the ``train_fp32`` line and the ``{"train": ...}``
+    line."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    def fp32(name, layers):
+        return configs.get_config(name).replace(dtype="float32", param_dtype="float32",
+                                                num_layers=layers)
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    checks = train_fp32_checks(dev, fp32("qwen1.5-4b", 2), fp32("olmoe-1b-7b", 2),
+                               fp32("xlstm-1.3b", 8))
+    log(phase="train_fp32", tol=TRAIN_TOL, opt_tol=OPT_TOL, grad_floor=GRAD_FLOOR,
+        tf32=torch.backends.cuda.matmul.allow_tf32, **checks,
+        seconds=time.perf_counter() - t_phase, card=smi)
+    t0 = time.perf_counter()
+    trained = lm_train(dev, configs.get_config("qwen1.5-4b"))
+    trained["train_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launched = train_launch(smi)
+    launched["seconds"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    assert not any(counts.values()), counts
+    print(json.dumps({"train": dict(
+        trained, fp32=checks, fp32_tol=TRAIN_TOL, opt_tol=OPT_TOL, launch=launched,
         kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
         card=smi)}, default=float), flush=True)
 
@@ -3768,8 +4139,9 @@ def main() -> int:
     serve_lm(dev, smi)                                  # 18. the LM substrate
     serve_lm_moe(dev, smi)                              # 19. its MoE serving path
     serve_lm_recurrent(dev, smi)                        # 20. the recurrent families
+    serve_lm_train(dev, smi)                            # 21. the training path
 
-    # ---------------------------------------------------------- 21. report
+    # ---------------------------------------------------------- 22. report
     # one entry per kernel route; a kernel's own count takes all of its
     # routes, so the f32-row and K <= 256 entries are the rest
     sources = {

@@ -20,7 +20,9 @@ def is_bf16(dtype) -> bool:
 def bf16_from_words(arr: np.ndarray) -> torch.Tensor:
     """A CPU bf16 tensor over 16-bit words: an ``ml_dtypes`` bfloat16
     array or the ``uint16`` view of one."""
-    return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    arr = np.asarray(arr)
+    words = np.ascontiguousarray(arr).view(np.int16).reshape(arr.shape)   # a 0-d array stays 0-d
+    return torch.from_numpy(words).view(torch.bfloat16)
 
 
 def bf16_words(t: torch.Tensor) -> np.ndarray:
@@ -34,4 +36,4 @@ def tensor_from_numpy(arr) -> torch.Tensor:
     arr = np.asarray(arr)
     if is_bf16(arr.dtype):
         return bf16_from_words(arr)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))

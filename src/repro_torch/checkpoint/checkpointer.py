@@ -90,13 +90,18 @@ def _torch_dtype(dtype) -> torch.dtype:
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
-    """(the array to store, its manifest dtype): bf16 as a uint16 view."""
+    """(a host copy of the leaf to store, its manifest dtype): bf16 as
+    uint16 words. Always a copy, so an async write never sees a later
+    in-place update of the leaf (``train_loop`` steps in place)."""
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
-            return bf16_words(leaf), "bfloat16"
-        a = leaf.detach().cpu().contiguous().numpy()
-    else:
-        a = np.asarray(leaf)
+            a, name = bf16_words(leaf), "bfloat16"
+        else:
+            a = leaf.detach().cpu().contiguous().numpy()
+            name = str(a.dtype)
+        # .cpu() copies a card's tensor; a CPU tensor's numpy view shares its memory
+        return (a.copy() if leaf.device.type == "cpu" else a), name
+    a = np.array(leaf, copy=True)
     if is_bf16(a.dtype):
         return a.view(np.uint16), "bfloat16"
     return a, str(a.dtype)
@@ -325,7 +330,7 @@ class Checkpointer:
                     or (want is not None and is_bf16(want))):
                 t = bf16_from_words(arr)
             else:
-                t = torch.from_numpy(np.ascontiguousarray(arr))
+                t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
             if want is not None:
                 t = t.to(_torch_dtype(want))
             out[key] = t.to(dev)

@@ -5,6 +5,7 @@ from repro_torch.data.vectors import (
     make_queries,
     recall_at_k,
 )
+from repro_torch.data.tokens import TokenPipeline
 
 __all__ = [
     "VectorDataset",
@@ -12,4 +13,5 @@ __all__ = [
     "make_queries",
     "brute_force_topk",
     "recall_at_k",
+    "TokenPipeline",
 ]

@@ -24,9 +24,16 @@ over units is a Python loop over views of the stacked tensors.
 Public entry points:
   init_params(cfg, seed_or_generator, device=)   → param tree
   forward(params, cfg, batch, ctx)               → (logits [B,S,V] f32, MoE aux)
+  loss_fn(params, cfg, batch, ctx)               → (loss + aux term, metrics)
   prefill(params, cfg, batch, ctx)               → logits of the last position
   init_cache(cfg, batch_size, max_len, device=)  → decode state
   decode_step(params, cfg, token, pos, cache)    → (logits [B,V] f32, cache)
+
+``forward`` takes the stacked units apart once (``torch.unbind``), so
+that under autograd each stacked leaf's gradient is stacked once; with
+``cfg.remat`` and a param that requires grad, each unit runs under
+``torch.utils.checkpoint`` (``RunCtx.remat_policy``: ``"full"``
+recomputes the unit, ``"dots"`` keeps its matrix products).
 
 ``decode_step`` writes each new key, value and ring position, and each
 recurrent state once the step has read it, into the cache's tensors in
@@ -38,9 +45,10 @@ conv)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._arrays import tensor_from_numpy
 from repro_torch._device import DeviceLike, resolve_device
@@ -123,6 +131,18 @@ def _stacked(make, n: int):
 def _at(tree, i: int):
     """The i-th slice of every leaf of a stacked tree (views)."""
     return map_tree(tree, lambda a: a[i])
+
+
+def _unstack(tree) -> List[Dict[str, Any]]:
+    """A stacked tree (nested dicts of [n, …] leaves) as its n slices,
+    views taken by one ``torch.unbind`` per leaf. Under autograd each
+    leaf's gradient is then stacked once, where n ``_at`` selects would
+    each fill a zero gradient of the whole leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -215,14 +235,24 @@ def params_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
     return map_tree(tree, lambda a: tensor_from_numpy(a).to(dev))
 
 
+def tree_from_reference(tree, *, device: DeviceLike = None):
+    """Any tree of the reference's arrays (nested dicts and tuples of numpy
+    arrays and scalars, as ``jax.device_get`` gives them; bf16 leaves as
+    ``ml_dtypes`` arrays) as tensors on ``device`` (CUDA by default): the
+    same keys, shapes, dtypes and bits. Every leaf is a copy, so the
+    port's in-place writes (``decode_step``'s cache, ``train_loop``'s
+    params and optimizer state) never reach the caller's arrays, which
+    may share the reference's own buffers."""
+    dev = resolve_device(device)
+    return map_tree(tree, lambda a: tensor_from_numpy(a).to(dev, copy=True))
+
+
 def cache_from_reference(cfg: ModelConfig, tree, *, device: DeviceLike = None):
     """The reference's decode cache (``init_cache``'s tree, numpy leaves;
     the recurrent states as tuples) as the port's, on ``device`` (CUDA by
-    default). Every leaf is a copy: ``decode_step`` writes the cache in
-    place, and must not write into the caller's arrays (those
-    ``jax.device_get`` gives may share the reference's own buffers)."""
-    dev = resolve_device(device)
-    return map_tree(tree, lambda a: tensor_from_numpy(a).to(dev, copy=True))
+    default), every leaf a copy (``tree_from_reference``): ``decode_step``
+    writes the cache in place."""
+    return tree_from_reference(tree, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -244,12 +274,15 @@ class RunCtx:
     n_units_override: Optional[int] = None     # 0 → skip the stack
     kv_range_chunking: bool = False
     shard_heads: bool = False
+    remat_policy: str = "full"                 # full | dots (save matmul outs)
 
     def __post_init__(self):
         if (self.mesh is not None and not isinstance(self.mesh, VirtualMesh)) or self.shard_heads:
             raise NotImplementedError(
                 "RunCtx(mesh=, shard_heads=) shard over a device mesh; the port "
                 "runs on one card and has no sharding rules")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy {self.remat_policy!r}: 'full' or 'dots'")
 
 
 def _mlp(blk, cfg: ModelConfig, h, mesh):
@@ -277,9 +310,9 @@ def _transformer_unit_fwd(cfg, unit, x, pos, ctx: RunCtx, layout):
     causal = not cfg.encoder_only
     aux = 0.0
     if layout["locals"]:
-        for i in range(layout["locals"]):
-            x, a = _attn_block(_at(unit["local"], i), cfg, x, pos, ctx,
-                               sliding=cfg.sliding_window, causal=causal)
+        for blk in _unstack(unit["local"]):
+            x, a = _attn_block(blk, cfg, x, pos, ctx, sliding=cfg.sliding_window,
+                               causal=causal)
             aux = aux + a
         x, a = _attn_block(unit["global"], cfg, x, pos, ctx, sliding=0, causal=causal)
         return x, aux + a
@@ -292,8 +325,7 @@ def _xlstm_unit_fwd(cfg, unit, x, ctx: RunCtx):
     """One xLSTM unit: its mLSTM blocks, then its sLSTM block, each a
     pre-norm residual mixer from a zero state."""
     if "mlstm" in unit:
-        for i in range(unit["mlstm"]["ln"].shape[0]):
-            blk = _at(unit["mlstm"], i)
+        for blk in _unstack(unit["mlstm"]):
             x = x + rec.mlstm_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
                                   chunk=ctx.rec_chunk, unroll_chunks=ctx.unroll_chunks)[0]
     if "slstm" in unit:
@@ -312,8 +344,7 @@ def _shared_block(cfg, shared, x, attend):
 def _zamba_unit_fwd(cfg, unit, shared, x, pos, ctx: RunCtx):
     """One Zamba2 unit: its Mamba2 blocks from a zero state, then the
     shared attention + FFN block (causal attention over the sequence)."""
-    for i in range(unit["mamba"]["ln"].shape[0]):
-        blk = _at(unit["mamba"], i)
+    for blk in _unstack(unit["mamba"]):
         x = x + rec.mamba2_mix(blk["mix"], cfg, cm.rms_norm(x, blk["ln"], cfg.norm_eps),
                                chunk=ctx.rec_chunk, unroll_chunks=ctx.unroll_chunks)[0]
     return _shared_block(cfg, shared, x, lambda h: cm.attention(
@@ -355,31 +386,99 @@ def _head(params, cfg: ModelConfig, x) -> torch.Tensor:
     return (x @ w).float()
 
 
+def _unit_fwd(cfg, layout, unit, shared, x, pos, ctx: RunCtx):
+    """One unit of any kind: (x, its aux; 0.0 without experts)."""
+    if layout["kind"] == "xlstm":
+        return _xlstm_unit_fwd(cfg, unit, x, ctx), 0.0
+    if layout["kind"] == "zamba":
+        return _zamba_unit_fwd(cfg, unit, shared, x, pos, ctx), 0.0
+    return _transformer_unit_fwd(cfg, unit, x, pos, ctx, layout)
+
+
+def _save_matmuls():
+    """Selective checkpointing that keeps the outputs of ``aten.mm`` /
+    ``aten.addmm``, the products without batch dimensions (the reference's
+    ``dots_with_no_batch_dims_saveable``), and recomputes the rest."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    aten = torch.ops.aten
+    return create_selective_checkpoint_contexts([aten.mm.default, aten.addmm.default])
+
+
+def _remat_unit(cfg, layout, unit, shared, x, pos, ctx: RunCtx):
+    """``_unit_fwd`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    unit's activations are recomputed in the backward pass, all of them
+    (``remat_policy="full"``) or all but the matrix products (``"dots"``).
+    The recompute runs with the mesh's ``drop_log`` off, so that each
+    forward pass logs its dropped slots once."""
+    passes = []
+
+    def run(x):
+        c = ctx
+        if passes and ctx.mesh is not None and ctx.mesh.drop_log is not None:
+            c = dataclasses.replace(ctx, mesh=dataclasses.replace(ctx.mesh, drop_log=None))
+        passes.append(1)
+        return _unit_fwd(cfg, layout, unit, shared, x, pos, c)
+
+    kw = {"context_fn": _save_matmuls} if ctx.remat_policy == "dots" else {}
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False, **kw)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    return tree.requires_grad
+
+
 def forward(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. ``batch``: ``tokens`` [B, S] (``positions``
     [3, B, S] for M-RoPE) or ``frames`` [B, S, D]. Returns (logits
     [B,S,V] f32, the MoE blocks' aux loss summed in the reference's
-    order; 0 without experts)."""
+    order; 0 without experts). Units are rematerialised (``cfg.remat``)
+    only when autograd records: grad mode on and a param that requires
+    grad."""
     layout = unit_layout(cfg)
     x, pos = _embed_in(params, cfg, batch)
     n_units = layout["n_units"] if ctx.n_units_override is None else ctx.n_units_override
+    unit_fn = _unit_fwd
+    if cfg.remat and torch.is_grad_enabled() and _needs_grad(params):
+        unit_fn = _remat_unit
     aux = 0.0
-    for u in range(min(n_units, layout["n_units"])):
-        unit = _at(params["units"], u)
-        if layout["kind"] == "xlstm":
-            x = _xlstm_unit_fwd(cfg, unit, x, ctx)
-        elif layout["kind"] == "zamba":
-            x = _zamba_unit_fwd(cfg, unit, params["shared"], x, pos, ctx)
-        else:
-            x, a = _transformer_unit_fwd(cfg, unit, x, pos, ctx, layout)
+    if n_units > 0:
+        for unit in _unstack(params["units"])[:n_units]:
+            x, a = unit_fn(cfg, layout, unit, params.get("shared"), x, pos, ctx)
             aux = aux + a
     if layout.get("tail_locals") and (ctx.n_units_override is None
                                       or ctx.n_units_override > 0):
-        for i in range(layout["tail_locals"]):
-            x, a = _attn_block(_at(params["tail_local"], i), cfg, x, pos, ctx,
-                               sliding=cfg.sliding_window, causal=not cfg.encoder_only)
+        for blk in _unstack(params["tail_local"]):
+            x, a = _attn_block(blk, cfg, x, pos, ctx, sliding=cfg.sliding_window,
+                               causal=not cfg.encoder_only)
             aux = aux + a
     return _head(params, cfg, x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()):
+    """Causal-LM (or masked-prediction for encoders) cross-entropy: the
+    mean over positions of ``logsumexp(logits) − logits[target]`` in f32,
+    or its ``loss_mask``-weighted sum over ``max(Σ mask, 1)``. Returns
+    (loss + ``cfg.moe.load_balance_loss`` · aux, {"loss", "aux",
+    "logits_mean_abs"}); ``logits_mean_abs`` is taken off the graph, so
+    autograd keeps no |logits| of its own."""
+    logits, aux = forward(params, cfg, batch, ctx)
+    targets = batch["targets"]
+    mask = batch.get("loss_mask")
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    else:
+        loss = nll.mean()
+    total = loss + cfg.moe.load_balance_loss * aux
+    flat = logits.detach()
+    mean_abs = torch.linalg.vector_norm(flat, 1) / flat.numel()
+    return total, {"loss": loss, "aux": aux, "logits_mean_abs": mean_abs}
 
 
 def prefill(params, cfg: ModelConfig, batch, ctx: RunCtx = RunCtx()) -> torch.Tensor:
