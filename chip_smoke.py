@@ -119,7 +119,7 @@ bf16-row route at the f32 route's rule; phase 2's timing covers every
 route; every top-K shape checked or timed launches as
 ``topk_update.plan`` says (the source's ``topk_update_plan``). After
 phase 4b the top-K kernel is also timed on path-shaped rows of the served
-k = 300 and int8 k = 100 rings. Each of phases 3–21 resets the launch
+k = 300 and int8 k = 100 rings. Each of phases 3–22 resets the launch
 counts before it and reads them after it.
 
 13-16. The serving plane (``serve_plane``) on a plane of the index as one
@@ -200,7 +200,25 @@ counts before it and reads them after it.
     ``python -m repro_torch.launch.train --arch qwen1.5-4b --smoke`` for 20
     steps, then 10 more resumed from its checkpoint (``train_launch``).
     One ``{"train": ...}`` line.
-22. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
+22. The analysis layer (``serve_dryrun``, ~30 s): (a) the dry run
+    (``launch.dryrun.trace_cell``, on ``meta``, nothing allocated on the
+    card, no launch) of the cells phases 18 and 21 ran: Qwen1.5-4B's bf16
+    prefill at B = 8, S = 1024 and its AdamW train step at B = 4, S =
+    1024; each bound equal to the one the phase logged (one code,
+    ``launch.roofline``), each predicted peak within 10 % of the peak the
+    phase measured (the timed prefill's own, ``prefill_peak_allocated_
+    bytes``; the train phase's), the FLOPs counted beside ``lm_bounds``'.
+    (b) The pod step: the SIFT1M-shaped index split into two super-shards
+    of two vector shards, one 128-query batch through ``make_spmd_search``
+    over ``VirtualMesh(data=2, model=2, pod=2)`` in fp32 and int8 (with
+    phase 4b's re-rank) under the profiler, against the oracle rows; the
+    tier's distance kernel and the top-K kernel launch, no plain version
+    runs. (c) ``calibrate_hardware`` from phase 2's distance kernel, phase
+    3's host ms a launch and a device-to-device copy; ``plan_cost`` of the
+    1x1 and 2x2 plans under ``H100_SXM`` and the calibrated model beside
+    phase 3's walls, the calibrated model ranking them as measured. One
+    ``{"dryrun": ...}`` line.
+23. Print the ``{"kernels": [...]}`` line (one entry per kernel route),
     then ``{"ok": true, ...}`` last.
 
 It imports nothing of JAX or of the JAX package.
@@ -218,20 +236,11 @@ from pathlib import Path
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
-INT8_OP_PER_S = 1979e12       # H100 SXM, dense int8 tensor-core rate
 TOL = 1e-4                    # the CPU tests' fp32 rule
 
 
 def log(**kw):
     print(json.dumps(kw, default=float), flush=True)
-
-
-def bound_ms(nbytes: float, flops: float, int8_ops: float = 0.0):
-    tb = nbytes / HBM_BYTES_PER_S
-    tf = flops / FP32_FLOP_PER_S + int8_ops / INT8_OP_PER_S
-    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
 def port_on_path() -> bool:
@@ -643,6 +652,7 @@ def time_kernels(dev, smi):
     import torch
 
     from repro_torch.kernels import distance, distance_int8, ops, ref, topk_update
+    from repro_torch.launch.roofline import bound_ms, distance_launch, int8_distance_launch
 
     rng = np.random.default_rng(1)
 
@@ -677,9 +687,7 @@ def time_kernels(dev, smi):
             time_ms(lambda: ref.partial_distance_update_ref(*a)),
             time_ms(lambda: torch.addmm(base, a[2], a[0].T, alpha=-2)),
             time_ms(lambda: distance.partial_distance_update(*a[:4], live, a[5])))
-        nbytes = 4 * (256 * d + 256 + m * d + m + 2 * m * 256 + m) + 4 * 2
-        flops = 2 * min(m, 128) * 128 * d * alive_tiles + 4 * m * 256
-        b, by = bound_ms(nbytes, flops)
+        b, by = bound_ms(*distance_launch(m, 256, d, alive_tiles))
         row = dict(kernel="partial_distance_update", shape=label, M=m, N=256, Db=d,
                    ctas=distance.ctas(m, 256), kernel_ms=ms,
                    kernel_ms_all_alive=ms_live, plain_ms=plain,
@@ -706,9 +714,7 @@ def time_kernels(dev, smi):
             time_ms(lambda: ref.int8_partial_distance_update_ref(*a)),
             time_ms(lambda: base - two_s2 * torch._int_mm(a[2], xt).float()),
             time_ms(lambda: distance_int8.int8_partial_distance_update(*a[:5], live, a[6])))
-        nbytes = 256 * d + m * d + 4 * (256 + 2 * m + 2 * m * 256) + 4
-        int8_ops = 2 * min(m, 128) * 128 * d * alive_tiles
-        b, by = bound_ms(nbytes, 4 * m * 256, int8_ops)
+        b, by = bound_ms(*int8_distance_launch(m, 256, d, alive_tiles))
         row = dict(kernel="int8_partial_distance_update", shape=label, M=m, N=256,
                    Db=d, ctas=distance_int8.ctas(m, 256), kernel_ms=ms,
                    kernel_ms_all_alive=ms_live,
@@ -743,9 +749,7 @@ def time_kernels(dev, smi):
             time_ms(lambda: ref.partial_distance_update_ref(*a)),
             time_ms(lambda: torch.addmm(base, a[2], xw.T, alpha=-2)),
             time_ms(lambda: distance.partial_distance_update(*a[:4], live, a[5])))
-        nbytes = 2 * 256 * d + 4 * (256 + m * d + m + 2 * m * 256 + m) + 4 * 2
-        flops = 2 * min(m, 128) * 128 * d * alive_tiles + 4 * m * 256
-        b, by = bound_ms(nbytes, flops)
+        b, by = bound_ms(*distance_launch(m, 256, d, alive_tiles, row_bytes=2))
         row = dict(kernel="partial_distance_update_bf16", shape=label, M=m, N=256, Db=d,
                    ctas=distance.ctas(m, 256), kernel_ms=ms,
                    kernel_ms_all_alive=ms_live, plain_ms=plain, library_ms=lib,
@@ -800,6 +804,7 @@ def time_topk(rng, dev, s, run_s, label, smi, **extra):
     import torch
 
     from repro_torch.kernels import ref, topk_update
+    from repro_torch.launch.roofline import bound_ms, topk_launch
 
     (m, c), k = s.shape, run_s.shape[1]
     s, run_s = (torch.from_numpy(v).to(dev) for v in (s, run_s))
@@ -815,9 +820,7 @@ def time_topk(rng, dev, s, run_s, label, smi, **extra):
         time_ms(lambda: topk_update.running_topk_update(s, ids_row, run_s, run_i, k=k)),
         time_ms(lambda: ref.running_topk_ref(s, ids_row, run_s, run_i, k=k)),
         time_ms(lambda: torch.topk(cat, k, dim=1, largest=False)))
-    nbytes = 4 * (m * c + c + 2 * m * k) + 4 * 2 * m * k
-    # operations: each list entry and candidate compared at least once
-    b, by = bound_ms(nbytes, m * (k + c))
+    b, by = bound_ms(*topk_launch(m, c, k))
     name = {1: "running_topk_update", 2: "running_topk_update_large_k",
             3: "running_topk_update_huge_k"}[topk_update.route(k)]
     plan = topk_update.launched_plan(m, c, k)
@@ -1329,7 +1332,8 @@ def serve_huge_k(dev, smi, data, q8):
     return counts
 
 
-def spmd_search(dev, smi, index, q, want_s, want_i, V=2, B=2, chunk=256):
+def spmd_search(dev, smi, index, q, want_s, want_i, V=2, B=2, chunk=256, P=1,
+                phase="spmd_search"):
     """Phase 4b (``spmd_search``): one query batch through the whole-mesh
     step the reference's ``examples/distributed_search.py`` drives:
     ``preassign`` on a load-aware plan, ``build_spmd_inputs`` (moved to the
@@ -1341,47 +1345,63 @@ def spmd_search(dev, smi, index, q, want_s, want_i, V=2, B=2, chunk=256):
     Each is held against the oracle rows (``want_s``, ``want_i``) by the
     example's rule: finite scores at rtol = atol = 1e-3, ids except across
     ties. The tier's distance kernel and the top-K kernel must launch, no
-    plain version may run. Returns the launch counts."""
+    plain version may run. Returns (the launch counts, each tier's line).
+
+    With ``P`` > 1 pods (phase 22b), the corpus is split into P
+    super-shards of V vector shards (one load-aware plan of P · V shards,
+    pod p owning shards p·V … p·V+V−1), packed by ``build_pod_inputs`` and
+    searched over ``VirtualMesh(data=V, model=B, pod=P)``; the step runs
+    under the profiler (its wall there and the card's idle share)."""
     import torch
 
     from repro_torch.core import PartitionPlan, assign_queries, preassign, prewarm_tau
-    from repro_torch.core.pipeline import SpmdConfig, build_spmd_inputs, make_spmd_search
+    from repro_torch.core.pipeline import (CORPUS_OPERANDS, SpmdConfig, build_pod_inputs,
+                                           build_spmd_inputs, make_spmd_search)
     from repro_torch.core.router import load_aware_assignment, ring_offsets
     from repro_torch.kernels import ops
     from repro_torch.virtual_mesh import VirtualMesh
 
     t_phase = time.perf_counter()
     k = want_s.shape[1]
-    plan = PartitionPlan(v_shards=V, d_blocks=B,
-                         cluster_to_shard=load_aware_assignment(index.sizes, None, V),
-                         ring_offsets=ring_offsets(V, B))
+    plan = PartitionPlan(v_shards=P * V, d_blocks=B,
+                         cluster_to_shard=load_aware_assignment(index.sizes, None, P * V),
+                         ring_offsets=ring_offsets(P * V, B))
     corpus = preassign(index, plan, pad_to=chunk)
     probes = assign_queries(index, q)
     x_host, xn_host = index.x.numpy(), index.xnorm2.cpu().numpy()
     order = np.argsort(index.ids, kind="stable")
     sids = index.ids[order]
-    total = {}
+    total, lines = {}, {}
     for precision in ("fp32", "int8"):
         int8 = precision == "int8"
         kp = k * index.cfg.rerank_factor if int8 else k
-        scfg = SpmdConfig(v_shards=V, d_blocks=B, qb=len(q), cap=corpus.cap, dim=index.dim,
-                          nprobe=probes.shape[1], k=kp, chunk=chunk, precision=precision)
+        scfg = SpmdConfig(v_shards=V, d_blocks=B, n_pods=P, qb=len(q), cap=corpus.cap,
+                          dim=index.dim, nprobe=probes.shape[1], k=kp, chunk=chunk,
+                          precision=precision)
         tau0 = (np.full((len(q),), np.inf, np.float32) if int8
                 else prewarm_tau(index, q, probes, k, index.cfg.prewarm_samples))
         t0 = time.perf_counter()
+        build = build_pod_inputs if P > 1 else build_spmd_inputs
         arrays = {n: a.to(dev) for n, a in
-                  build_spmd_inputs(index, corpus, q, scfg, probes, tau0).items()}
+                  build(index, corpus, q, scfg, probes, tau0).items()}
         inputs_s = time.perf_counter() - t0
-        step = make_spmd_search(scfg, VirtualMesh(V, model=B))
-        operands = [arrays[n] for n in ("x_blocks", "xn2_blocks", "cluster_ids", "row_ids")]
+        step = make_spmd_search(scfg, VirtualMesh(V, model=B, pod=P))
+        operands = [arrays[n] for n in CORPUS_OPERANDS]
         operands += [arrays["scale2"]] if int8 else []
         operands += [arrays["queries"], arrays["probes"], arrays["tau0"]]
         ops.reset_launch_counts()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scores, ids, stats = step(*operands)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
+        extra = {}
+        if P > 1:
+            (scores, ids, stats), busy_ms, wall_ms = profiled(lambda: step(*operands))
+            wall_s = wall_ms / 1e3
+            extra = dict(device_busy_ms=busy_ms, idle_share=idle_share(busy_ms, wall_ms),
+                         wall_under_profiler=True)
+        else:
+            t0 = time.perf_counter()
+            scores, ids, stats = step(*operands)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
         counts = ops.launch_counts()
         dist, other = (("int8_partial_distance_update", "partial_distance_update") if int8
                        else ("partial_distance_update", "int8_partial_distance_update"))
@@ -1407,17 +1427,19 @@ def spmd_search(dev, smi, index, q, want_s, want_i, V=2, B=2, chunk=256):
             assert np.allclose(np.sort(scores[r]), np.sort(want_s[r]), rtol=1e-3, atol=1e-3), (
                 f"{precision} row {r}: {ids[r]} vs {want_i[r]}")
             tie_rows += 1
-        log(phase="spmd_search", precision=precision, mesh=f"{V}x{B}", nq=len(q), k=k,
-            stage1_k=kp, cap=corpus.cap, chunk=chunk, inputs_s=inputs_s,
+        lines[precision] = dict(
+            precision=precision, mesh=f"{P}x{V}x{B}" if P > 1 else f"{V}x{B}", nq=len(q),
+            k=k, stage1_k=kp, cap=corpus.cap, chunk=chunk, inputs_s=inputs_s,
             wall_ms=wall_s * 1e3, tile_skip_frac=float(stats[0]) / max(int(stats[1]), 1),
             max_abs_err=float(np.abs(scores[finite] - want_s[finite]).max()),
-            rows_differing_at_ties=tie_rows, launches=counts, card=smi)
+            rows_differing_at_ties=tie_rows, launches=counts, **extra)
+        log(phase=phase, **lines[precision], card=smi)
         for n, c in counts.items():
             total[n] = total.get(n, 0) + c
         del arrays, operands
         torch.cuda.empty_cache()
-    log(phase="spmd_search_path", seconds=time.perf_counter() - t_phase, counts=total, card=smi)
-    return total
+    log(phase=f"{phase}_path", seconds=time.perf_counter() - t_phase, counts=total, card=smi)
+    return total, lines
 
 
 def device_mb():
@@ -2573,7 +2595,6 @@ def serve_plane(dev, smi, index, ds):
 
 
 # ------------------------------------------------------------------ the LM substrate
-BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 tensor-core rate
 LM_TOL = 1e-3                 # fp32 on the card against the CPU / its own forward
 FILL_MAX_ABS = 0.2            # bf16 fill against prefill: about twice the 0.09375 measured
 FILL_ARGMAX_AGREE = 7 / 8     # bf16 fill against prefill: rows whose argmax agrees
@@ -2581,15 +2602,12 @@ FILL_TOKENS = 256             # teacher-forced fill: Qwen1.5 and the recurrent m
 RING_F64_TOL = 1e-2           # ring decode (fp32) against forward in f64: 10× the 0.00098 measured
 
 
-def _leaves(tree, name="", full=False):
-    """(key, leaf) pairs of a nested dict; a tuple's leaves under its key.
-    With ``full``, a key is the leaf's whole path, joined by ``/``."""
-    if isinstance(tree, dict):
-        return [kv for k, v in tree.items()
-                for kv in _leaves(v, f"{name}/{k}" if full else k, full)]
-    if isinstance(tree, tuple):
-        return [kv for v in tree for kv in _leaves(v, name, full)]
-    return [(name, tree)]
+def _leaves(tree, full=False):
+    """``launch.roofline.named_leaves``: (key, leaf) pairs of a param,
+    cache or optimizer tree; with ``full``, keys are whole paths."""
+    from repro_torch.launch.roofline import named_leaves
+
+    return named_leaves(tree, full=full)
 
 
 def lm_close(got, want, what):
@@ -2703,79 +2721,6 @@ def lm_fp32_checks(dev, qwen, gemma, vl, hubert, S=64, S_ring=1088):
     return errs, witness
 
 
-def lm_bounds(cfg, params, B, S, attended, expert_rows=None, state_bytes=0):
-    """(prefill FLOPs of the GEMMs and attention, decode bytes read per step
-    at ``attended`` positions): 2 · N · tokens over the weights that
-    multiply (the embedding table is a lookup unless it is the tied head)
-    plus the causal attention's QK^T and PV over the positions each query
-    attends; a decode step reads those weights once, B embedding rows, and
-    the attended keys and values of every attention layer. An MoE config's
-    expert weights multiply ``expert_rows`` rows a layer, summed over its
-    experts: B · S · E on the dense path (every expert for every token, the
-    default), E · cap_e on the EP path, B · S · k for the routed slots
-    alone; its router multiplies every token. The recurrent layouts:
-    attention runs in every transformer layer, in each Zamba2 unit (the
-    shared block, whose weights multiply once a unit and are read once a
-    step), in no xLSTM layer; sLSTM's ``r`` and Mamba2's ``conv`` work in
-    f32 and are counted by ``recurrent_f32_flops``; a decode step reads and
-    writes the recurrent state (``state_bytes``) once."""
-    from repro_torch.models import unit_layout
-
-    layout = unit_layout(cfg)
-    units = [kv for k in ("units", "tail_local") if k in params for kv in _leaves(params[k])]
-    shared = _leaves(params["shared"]) if "shared" in params else []
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    experts = {"w1", "w2", "w3"} if cfg.is_moe else set()
-
-    def multiplying(leaves):
-        return sum(t.numel() for k, t in leaves
-                   if (k.startswith("w") and k not in experts) or k == "router")
-
-    n_mm = multiplying(units) + layout["n_units"] * multiplying(shared) + head.numel()
-    E = max(cfg.moe.num_experts, 1)
-    per_expert = sum(t.numel() for k, t in units if k in experts) / E    # all layers
-    rows = B * S * E if expert_rows is None else expert_rows
-    weights = [t for _, t in units + shared]
-    layers = {"transformer": cfg.num_layers, "zamba": layout["n_units"],
-              "xlstm": 0}[layout["kind"]]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    attn_flops = layers * 4 * B * H * hd * S * (S + 1) / 2
-    weight_bytes = sum(t.numel() * t.element_size() for t in weights) + (
-        head.numel() * head.element_size())
-    embed_rows = 0 if cfg.tie_embeddings else B * cfg.d_model * params["embed"].element_size()
-    kv_bytes = layers * 2 * B * attended * KV * hd * params["embed"].element_size()
-    return (2 * n_mm * B * S + 2 * per_expert * rows + attn_flops,
-            weight_bytes + embed_rows + kv_bytes + 2 * state_bytes)
-
-
-def recurrent_f32_flops(cfg, B, S, chunk):
-    """The f32 work of a recurrent prefill of B × S tokens in chunks of
-    ``chunk``: per mLSTM layer the chunk bodies' products (q·kᵀ, its
-    weighted sums over v and k: 6 · B · H · S · c · hd; the state read by q
-    and rewritten: 4 · B · H · S · hd²) and per sLSTM layer h · r (2 · B ·
-    S · d · 4 · hd); per Mamba2 layer the SSD chunk's C · Bᵀ, its sum over
-    x and the state's read and rewrite (2 · B · S · c · (ds + Hm · dh) +
-    4 · B · Hm · S · dh · ds) and the causal conv (2 · B · S · W · (di +
-    2 · ds)); 0 for a transformer."""
-    from repro_torch.models import unit_layout
-
-    layout = unit_layout(cfg)
-    c, d = min(chunk, S), cfg.d_model
-    if layout["kind"] == "xlstm":
-        H, m = cfg.num_heads, layout["mlstm_per_unit"]
-        hd = (cfg.ssm_expand or 2) * d // H
-        mlstm = 6 * B * H * S * c * hd + 4 * B * H * S * hd * hd
-        slstm = 2 * B * S * d * 4 * (d // H) if layout["unit_layers"] > m else 0
-        return layout["n_units"] * (m * mlstm + slstm)
-    if layout["kind"] == "zamba":
-        di, ds = cfg.ssm_expand * d, cfg.ssm_state
-        Hm, dh = di // 64, 64
-        ssd = 2 * B * S * c * (ds + Hm * dh) + 4 * B * Hm * S * dh * ds
-        conv = 2 * B * S * cfg.ssm_conv * (di + 2 * ds)
-        return layout["n_units"] * layout["mamba_per_unit"] * (ssd + conv)
-    return 0
-
-
 def state_bytes_of(cache):
     """Bytes of a cache's recurrent states (its mLSTM, sLSTM and Mamba2
     tuples); 0 for a transformer's KV cache."""
@@ -2886,6 +2831,7 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False, fill=No
     prompts, prefill's last logits and a copy of the filled cache."""
     import torch
 
+    from repro_torch.launch.roofline import decode_bound, prefill_bound
     from repro_torch.models import RunCtx, decode_step, init_cache, init_params, prefill
     from repro_torch.models.lm import map_tree
 
@@ -2903,10 +2849,15 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False, fill=No
     with RouteLog() as prefill_routes:                  # warm: the library's plans
         prefill(params, cfg, {"tokens": prompts})
     torch.cuda.synchronize()
+    # the timed prefill's own peak (the phase's dry run predicts it), the
+    # phase's peak kept across the reset
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     last = prefill(params, cfg, {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
 
     fill_prefill_routes = prefill_routes
     if fill == S:
@@ -2965,28 +2916,26 @@ def lm_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, keep=False, fill=No
     _, busy_ms, wall_ms = profiled(eight_steps)
     (lg, cache), step_ops = aten_ops(lambda: decode_step(
         params, cfg, lg.argmax(-1), torch.full((B,), fill + steps + 8, device=dev), cache))
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak_before, torch.cuda.max_memory_allocated())
     assert bool(torch.isfinite(lg).all())
-    flops, _ = lm_bounds(cfg, params, B, S, 0)          # the dense path: every expert
+    pb = prefill_bound(cfg, params, B, S, RunCtx().rec_chunk)
+    flops, f32_flops = pb["flops"], pb["f32_flops"]
     state_bytes = state_bytes_of(cache)
-    _, step_bytes = lm_bounds(cfg, params, B, S, fill + (steps + 1) / 2, state_bytes=state_bytes)
-    f32_flops = recurrent_f32_flops(cfg, B, S, RunCtx().rec_chunk)
-    ops_s = flops / BF16_FLOP_PER_S + f32_flops / FP32_FLOP_PER_S
-    prefill_bound_s = max(ops_s, param_bytes / HBM_BYTES_PER_S)
+    db = decode_bound(cfg, params, B, fill + (steps + 1) / 2, state_bytes=state_bytes)
+    step_bytes = db["bytes"]
     out = dict(
         model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
         dtype=cfg.dtype, batch=B, prompt=S, max_len=max_len, greedy_steps=steps,
         init_s=init_s, param_bytes=param_bytes, cache_bytes=cache_bytes,
-        peak_allocated_bytes=peak,
+        peak_allocated_bytes=peak, prefill_peak_allocated_bytes=prefill_peak,
         prefill_ms=prefill_s * 1e3, prefill_tokens_per_s=B * S / prefill_s,
-        prefill_flops=flops, prefill_bound_ms=prefill_bound_s * 1e3,
-        prefill_bound_by=("operations" if ops_s >= param_bytes / HBM_BYTES_PER_S
-                          else "bytes"),
+        prefill_flops=flops, prefill_bound_ms=pb["bound_ms"],
+        prefill_bound_by=pb["bound_by"],
         fill_ms_per_step=fill_s / fill * 1e3, prefill_max_abs_logit=fill_max_abs_logit,
         fill_vs_prefill_max_abs=fill_vs_prefill, fill_vs_prefill_argmax_agree=argmax_agree,
         decode_ms_per_step=decode_s / steps * 1e3, decode_tokens_per_s=B * steps / decode_s,
         decode_bytes_per_step=step_bytes,
-        decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3,
+        decode_bound_ms_per_step=db["bound_ms"],
         decode_bound_by="bytes",
         idle_share_8_steps=idle_share(busy_ms, wall_ms), busy_ms_8_steps=busy_ms,
         wall_ms_8_steps=wall_ms, decode_aten_ops_per_step=step_ops,
@@ -3011,9 +2960,8 @@ def serve_lm(dev, smi):
     5 + 1 unit and the 2 tail locals, window 1024, decoded over 1088
     positions); (b) Qwen1.5-4B at its published width and depth in bf16
     (``lm_served``, the fill over the prompts' first FILL_TOKENS), then 8
-    steps at the cache's last positions (``decode_at_length``) and the
-    prefill by unbind against selects (``unbind_against_selects``). The
-    path runs no hand-written kernel: the launch counts stay 0. Prints the
+    steps at the cache's last positions (``decode_at_length``). The path
+    runs no hand-written kernel: the launch counts stay 0. Prints the
     ``{"lm": ...}`` line."""
     import torch
 
@@ -3036,8 +2984,6 @@ def serve_lm(dev, smi):
     served, st = lm_served(dev, qwen, fill=FILL_TOKENS, keep=True)
     del st["filled"]
     served["at_max_len"] = decode_at_length(dev, qwen, st["params"], 8, served["max_len"])
-    served["prefill_unbind_against_selects"] = unbind_against_selects(
-        qwen, st["params"], st["prompts"])
     del st
     torch.cuda.empty_cache()
     counts = ops.launch_counts()
@@ -3051,6 +2997,7 @@ def serve_lm(dev, smi):
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
         kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
         card=smi)}, default=float), flush=True)
+    return served
 
 
 def lm_moe_fp32_checks(dev, olmoe, S=64, ep=2):
@@ -3160,6 +3107,8 @@ def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=
     torch.cuda.synchronize()
     ep_s = time.perf_counter() - t0
 
+    from repro_torch.launch.roofline import BF16_FLOPS, HBM_BW, lm_bounds
+
     E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
     cap_send, cap_e = moe.ep_capacities(cfg, B // ep * S, ep)
     param_bytes = out["param_bytes"]
@@ -3174,14 +3123,14 @@ def lm_moe_served(dev, cfg, B=8, S=1024, max_len=1152, steps=64, ep=8, ep_steps=
             prefill_expert_slots_per_layer=E * cap_e, prefill_routed_slots_per_layer=B * S * k,
             prefill_ms=prefill_ep_s * 1e3, prefill_tokens_per_s=B * S / prefill_ep_s,
             prefill_flops=flops_ep,
-            prefill_bound_ms=max(flops_ep / BF16_FLOP_PER_S, param_bytes / HBM_BYTES_PER_S) * 1e3,
+            prefill_bound_ms=max(flops_ep / BF16_FLOPS, param_bytes / HBM_BW) * 1e3,
             prefill_dropped_slots_per_layer=prefill_drops,
             prefill_vs_dense_max_abs=float((last_ep - last).abs().max()),
             prefill_vs_dense_argmax_agree=float((last_ep.argmax(-1) == last.argmax(-1))
                                                 .float().mean()),
             decode_steps=ep_steps, decode_ms_per_step=ep_s / ep_steps * 1e3,
             decode_tokens_per_s=B * ep_steps / ep_s,
-            decode_bound_ms_per_step=ep_step_bytes / HBM_BYTES_PER_S * 1e3,
+            decode_bound_ms_per_step=ep_step_bytes / HBM_BW * 1e3,
             decode_cap_send_cap_e=list(moe.ep_capacities(cfg, B // ep, ep)),
             decode_dropped_slots=decode_drops,
             decode_vs_dense_max_abs=max(r["max_abs"] for r in step_rule),
@@ -3411,6 +3360,7 @@ def decode_at_length(dev, cfg, params, B, max_len, steps=8):
     logit finite. Returns the numbers."""
     import torch
 
+    from repro_torch.launch.roofline import decode_bound
     from repro_torch.models import decode_step, init_cache
 
     torch.cuda.empty_cache()
@@ -3426,47 +3376,15 @@ def decode_at_length(dev, cfg, params, B, max_len, steps=8):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
     assert bool(torch.isfinite(lg).all()), f"{cfg.name} at {max_len}: a non-finite logit"
-    _, step_bytes = lm_bounds(cfg, params, B, 0, max_len - (steps - 1) / 2,
-                              state_bytes=state_bytes_of(cache))
+    db = decode_bound(cfg, params, B, max_len - (steps - 1) / 2,
+                      state_bytes=state_bytes_of(cache))
     out = dict(max_len=max_len, positions=[lo, max_len - 1],
                cache_bytes=sum(t.numel() * t.element_size() for _, t in _leaves(cache)),
-               decode_ms_per_step=step_s * 1e3, decode_bytes_per_step=step_bytes,
-               decode_bound_ms_per_step=step_bytes / HBM_BYTES_PER_S * 1e3)
+               decode_ms_per_step=step_s * 1e3, decode_bytes_per_step=db["bytes"],
+               decode_bound_ms_per_step=db["bound_ms"])
     del cache
     torch.cuda.empty_cache()
     return out
-
-
-def unbind_against_selects(cfg, params, prompts):
-    """``prefill`` ms with ``forward``'s one ``torch.unbind`` a stacked
-    leaf against the per-unit ``_at`` selects it replaced, alternated
-    (unbind, selects, selects, unbind) on the same prompts, after the warm
-    prefill of ``lm_served``; and the max |Δ| of the two paths' last
-    logits (the same operations: 0 for a model without experts). Whether
-    the split costs inference anything."""
-    import torch
-
-    from repro_torch.models import lm, prefill
-
-    def selects(tree):
-        leaf = tree
-        while isinstance(leaf, dict):
-            leaf = next(iter(leaf.values()))
-        return [lm._at(tree, i) for i in range(leaf.shape[0])]
-
-    unbind, ms, last = lm._unstack, {"unbind": [], "selects": []}, {}
-    try:
-        for name in ("unbind", "selects", "selects", "unbind"):
-            lm._unstack = unbind if name == "unbind" else selects
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            last[name] = prefill(params, cfg, {"tokens": prompts})
-            torch.cuda.synchronize()
-            ms[name].append((time.perf_counter() - t0) * 1e3)
-    finally:
-        lm._unstack = unbind
-    return dict(unbind_ms=ms["unbind"], selects_ms=ms["selects"],
-                max_abs_diff=float((last["unbind"] - last["selects"]).abs().max()))
 
 
 def slstm_prefill_ms(dev, cfg, params, B, S):
@@ -3495,9 +3413,8 @@ def serve_lm_recurrent(dev, smi, long_len=4224):
     cache, 64 greedy steps, 8 under the profiler) with the fill over the
     prompts' first FILL_TOKENS tokens, held against a prefill of those;
     then ``decode_at_length`` at ``long_len`` positions (a recurrent state
-    is the same at any length, Zamba2's shared KV grows), for xLSTM one
-    sLSTM layer's prefill time, and the prefill by unbind against selects
-    (``unbind_against_selects``). The path runs no hand-written kernel:
+    is the same at any length, Zamba2's shared KV grows) and, for xLSTM,
+    one sLSTM layer's prefill time. The path runs no hand-written kernel:
     the launch counts stay 0. Prints the ``{"lm_recurrent": ...}`` line."""
     import torch
 
@@ -3525,8 +3442,6 @@ def serve_lm_recurrent(dev, smi, long_len=4224):
         out["long"] = decode_at_length(dev, cfg, st["params"], 8, long_len)
         if "slstm" in st["params"]["units"]:
             out["slstm_layer_prefill_ms"] = slstm_prefill_ms(dev, cfg, st["params"], 8, 1024)
-        out["prefill_unbind_against_selects"] = unbind_against_selects(
-            cfg, st["params"], st["prompts"])
         out["seconds"] = time.perf_counter() - t0
         served[cfg.name] = out
         del st
@@ -3666,14 +3581,13 @@ def lm_train(dev, cfg, B=4, S=1024, warm=2, timed=8, traced=2):
     then ``traced`` under the profiler (idle share, device ms by kernel
     name). Every loss and grad norm
     must be finite and the mean of the last 3 losses below the first.
-    The bound of a step: 4 × the prefill FLOPs of ``lm_bounds`` (forward,
-    the remat's recompute, a backward of 2×) over 989 TFLOP/s, plus the
-    optimizer's bytes over 3.35 TB/s (params and gradients read, the
-    gradients twice, μ and ν read and written, params written). Returns
-    the numbers of the ``train`` line."""
+    The bound of a step: ``roofline.train_step_bound`` (4 × the prefill
+    FLOPs of ``lm_bounds`` over 989 TFLOP/s, plus the optimizer's bytes
+    over 3.35 TB/s). Returns the numbers of the ``train`` line."""
     import torch
 
     from repro_torch.data import TokenPipeline
+    from repro_torch.launch.roofline import train_step_bound
     from repro_torch.models import RunCtx, init_params
     from repro_torch.train import OptConfig, init_opt_state
     from repro_torch.train.optimizer import opt_update_
@@ -3733,10 +3647,8 @@ def lm_train(dev, cfg, B=4, S=1024, warm=2, timed=8, traced=2):
     assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
     assert np.mean(losses[-3:]) < losses[0], losses
     assert int(opt["step"]) == warm + timed + 1 + traced
-    flops, _ = lm_bounds(cfg, params, B, S, 0)
+    bound = train_step_bound(cfg, params, B, S)
     grad_bytes = param_bytes
-    opt_traffic = 2 * param_bytes + 2 * grad_bytes + 2 * 2 * 4 * n_params
-    bound_ms = (4 * flops / BF16_FLOP_PER_S + opt_traffic / HBM_BYTES_PER_S) * 1e3
     med = float(np.median(step_ms[warm:]))
     out = dict(
         model=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
@@ -3749,9 +3661,9 @@ def lm_train(dev, cfg, B=4, S=1024, warm=2, timed=8, traced=2):
         peak_predicted_bytes=param_bytes + opt_bytes + grad_bytes + unit_bytes,
         step_ms_warm=step_ms[:warm], step_ms=step_ms[warm:], step_ms_median=med,
         tokens_per_s=B * S / (med / 1e3), losses=losses, grad_norms=gnorms,
-        flops_per_step=4 * flops, optimizer_bytes_per_step=opt_traffic,
-        bound_ms=bound_ms, bound_gemm_ms=4 * flops / BF16_FLOP_PER_S * 1e3,
-        bound_optimizer_ms=opt_traffic / HBM_BYTES_PER_S * 1e3, bound_share=bound_ms / med,
+        flops_per_step=bound["flops"], optimizer_bytes_per_step=bound["optimizer_bytes"],
+        bound_ms=bound["bound_ms"], bound_gemm_ms=bound["bound_gemm_ms"],
+        bound_optimizer_ms=bound["bound_optimizer_ms"], bound_share=bound["bound_ms"] / med,
         idle_share_traced=idle_share(busy_ms, wall_ms), busy_ms_traced=busy_ms,
         wall_ms_traced=wall_ms, traced_steps=traced, **split,
         top_device_ms_per_step={k: v / traced for k, v in top})
@@ -3829,6 +3741,120 @@ def serve_lm_train(dev, smi):
         trained, fp32=checks, fp32_tol=TRAIN_TOL, opt_tol=OPT_TOL, launch=launched,
         kernel_launches=sum(counts.values()), seconds=time.perf_counter() - t_phase,
         card=smi)}, default=float), flush=True)
+    return trained
+
+
+DRYRUN_PEAK_TOL = 0.10       # the dry run's predicted peak against the card's, relative
+
+
+def serve_dryrun(dev, smi, lm, trained, index, q, want_s, want_i, dist_row, ring128):
+    """Phase 22 (``dryrun``): the port's analysis layer held against the
+    card. (a) ``launch.dryrun.trace_cell`` on ``meta`` of the two cells
+    phases 18 and 21 ran (Qwen1.5-4B in bf16: the prefill at ``lm``'s B and
+    S, the AdamW step with remat at ``trained``'s): each cell's bound must
+    equal the one the phase logged (one code, ``launch.roofline``), its
+    predicted peak (arguments + temp) lie within DRYRUN_PEAK_TOL of the
+    peak the phase measured (the timed prefill's own; the train phase's),
+    and its FLOPs are logged beside ``lm_bounds``'; the dry run launches
+    nothing and leaves the card's memory as it was. (b) The pod step:
+    ``spmd_search`` with P = 2 over ``VirtualMesh(data=2, model=2,
+    pod=2)``, fp32 and int8, against the oracle rows. (c) The H100 model:
+    ``calibrate_hardware`` from phase 2's distance kernel at the 1x1 ring
+    shape (every tile alive), the host ms a launch of phase 3's fp32 1x1
+    128-query batch and one timed 256 MiB device-to-device copy;
+    ``plan_cost`` of the SIFT1M cell's 1x1 and 2x2 plans for that batch
+    under ``H100_SXM`` and the calibrated model, beside phase 3's walls;
+    the calibrated model must rank the two meshes as the card ran them.
+    Prints the ``{"dryrun": ...}`` line; returns the pod step's launch
+    counts."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import (H100_SXM, PartitionPlan, WorkloadStats, assign_queries,
+                                  calibrate_hardware, plan_cost)
+    from repro_torch.core.router import load_aware_assignment
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, roofline
+
+    t_phase = time.perf_counter()
+    qwen = configs.get_config("qwen1.5-4b")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    card_bytes = torch.cuda.memory_allocated()
+    cells = {}
+    for kind, B, S, logged, measured in (
+            ("prefill", lm["batch"], lm["prompt"], lm["prefill_bound_ms"],
+             lm["prefill_peak_allocated_bytes"]),
+            ("train", trained["batch"], trained["seq"], trained["bound_ms"],
+             trained["peak_allocated_bytes"])):
+        t0 = time.perf_counter()
+        cell = dryrun.trace_cell(qwen, roofline.custom_shape(kind, B, S))
+        row = roofline.analyze([cell])[0]
+        mem = cell["variants"]["full"]["memory"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"]
+        rel = predicted / measured - 1
+        assert cell["bound"]["bound_ms"] == logged, (kind, cell["bound"]["bound_ms"], logged)
+        assert abs(rel) <= DRYRUN_PEAK_TOL, (
+            f"{kind}: predicted peak {predicted} against {measured} measured")
+        cells[kind] = dict(
+            shape=cell["shape"], bound_ms=cell["bound"]["bound_ms"], logged_bound_ms=logged,
+            predicted_peak_bytes=predicted, argument_bytes=mem["argument_bytes"],
+            temp_bytes=mem["temp_bytes"], measured_peak_bytes=measured, peak_rel_err=rel,
+            flops_counted=cell["stack"]["flops"],
+            flops_combined=roofline._combine(cell, lambda v: v["flops"]),
+            lm_bounds_flops=cell["bound"]["flops"],
+            bytes_accessed=cell["stack"]["bytes_accessed"], aten_ops=cell["stack"]["ops"],
+            compute_ms=row["compute_s"] * 1e3, memory_ms=row["memory_s"] * 1e3,
+            dominant=row["dominant"], fits_hbm=row["fits_hbm"],
+            seconds=time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    assert not any(counts.values()), counts
+    assert torch.cuda.memory_allocated() == card_bytes, "the dry run allocated on the card"
+
+    pod_counts, pod = spmd_search(dev, smi, index, q, want_s, want_i, V=2, B=2, P=2,
+                                  phase="dryrun_pod_step")
+
+    m, n, d = dist_row["M"], dist_row["N"], dist_row["Db"]
+    _, flops = roofline.distance_launch(m, n, d, -(-m // 128) * -(-n // 128))
+    x = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
+    copy_ms, _ = time_ms(lambda: y.copy_(x), reps=20)
+    host = ring128[(1, 1)]
+    calibrated = calibrate_hardware(
+        distance_flops=flops, distance_s=dist_row["kernel_ms_all_alive"] / 1e3,
+        host_s_per_launch=host["wall_ms"] / host["launches"] / 1e3,
+        copy_bytes=x.numel() * x.element_size(), copy_s=copy_ms / 1e3)
+    del x, y
+    torch.cuda.empty_cache()
+    hits = np.bincount(assign_queries(index, q).reshape(-1), minlength=len(index.sizes))
+    w = WorkloadStats(cluster_sizes=np.asarray(index.sizes), cluster_hits=hits,
+                      dim=index.dim, nq=len(q), topk=want_s.shape[1])
+    plans = {"1x1": PartitionPlan(v_shards=1, d_blocks=1,
+                                  cluster_to_shard=np.zeros(len(index.sizes), np.int32)),
+             "2x2": PartitionPlan(v_shards=2, d_blocks=2,
+                                  cluster_to_shard=load_aware_assignment(index.sizes, hits, 2))}
+    costs = {name: {mesh: plan_cost(plan, w, model) for mesh, plan in plans.items()}
+             for name, model in (("h100_sxm", H100_SXM), ("calibrated", calibrated))}
+    walls = {"1x1": ring128[(1, 1)]["wall_ms"], "2x2": ring128[(2, 2)]["wall_ms"]}
+    cal = costs["calibrated"]
+    assert (cal["1x1"]["cost"] < cal["2x2"]["cost"]) == (walls["1x1"] < walls["2x2"]), (
+        cal, walls)
+    hardware = dict(
+        calibrated=dict(flops_rate=calibrated.flops_rate, net_bw=calibrated.net_bw,
+                        net_latency=calibrated.net_latency),
+        h100_sxm=dict(flops_rate=H100_SXM.flops_rate, net_bw=H100_SXM.net_bw,
+                      net_latency=H100_SXM.net_latency),
+        inputs=dict(distance_ms=dist_row["kernel_ms_all_alive"], distance_flops=flops,
+                    host_ms_per_launch=host["wall_ms"] / host["launches"],
+                    batch_launches=host["launches"], copy_ms=copy_ms,
+                    copy_bytes=64 * 2 ** 20 * 4),
+        plan_cost=costs, measured_wall_ms=walls,
+        calibrated_ranks_as_measured=True)
+    print(json.dumps({"dryrun": dict(
+        cells=cells, peak_tol=DRYRUN_PEAK_TOL, pod_step=pod, hardware=hardware,
+        seconds=time.perf_counter() - t_phase, card=smi)}, default=float), flush=True)
+    return pod_counts
 
 
 def main() -> int:
@@ -3937,6 +3963,7 @@ def main() -> int:
               "running_topk_update_large_k": 0, "running_topk_update_huge_k": 0}
     fp32_mb = {}              # mesh → the fp32 executor's resident MB
     splits = {}               # (tier, mesh, M, K) → survivor histogram
+    ring128 = {}              # mesh → the fp32 128-query batch's wall ms and launches
     for mesh in ((1, 1), (2, 2)):
         mb_before = torch.cuda.memory_allocated() / 2 ** 20
         ex = SpmdExecutor(index, ExecutorConfig(d_blocks=mesh[1]), mesh=mesh)
@@ -3950,6 +3977,9 @@ def main() -> int:
             res = ex.search_batch(q_all[lo:lo + n])
             after = ops.launch_counts()
             walls[n] = res.stats["wall_s"] * 1e6
+            if n == 128:
+                ring128[mesh] = dict(wall_ms=walls[n] / 1e3, launches=sum(
+                    after[k] - before[k] for k in after))
             check(res, lo, lo + n)
             log(phase="serve", mesh=f"{mesh[0]}x{mesh[1]}", nq=n,
                 wall_ms=res.stats["wall_s"] * 1e3, buckets=res.stats["buckets"],
@@ -4094,8 +4124,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------- 4b. the whole-mesh step
-    counts = spmd_search(dev, smi, index, q_all[lo128:lo128 + 128],
-                         oracle.scores[lo128:lo128 + 128], oracle.ids[lo128:lo128 + 128])
+    counts, _ = spmd_search(dev, smi, index, q_all[lo128:lo128 + 128],
+                            oracle.scores[lo128:lo128 + 128], oracle.ids[lo128:lo128 + 128])
     for k in served:
         served[k] += counts[k]
 
@@ -4136,12 +4166,17 @@ def main() -> int:
     for counts in paths:
         for k in served:
             served[k] += counts[k]
-    serve_lm(dev, smi)                                  # 18. the LM substrate
+    lm = serve_lm(dev, smi)                             # 18. the LM substrate
     serve_lm_moe(dev, smi)                              # 19. its MoE serving path
     serve_lm_recurrent(dev, smi)                        # 20. the recurrent families
-    serve_lm_train(dev, smi)                            # 21. the training path
+    trained = serve_lm_train(dev, smi)                  # 21. the training path
+    counts = serve_dryrun(dev, smi, lm, trained, index, q_all[lo128:lo128 + 128],
+                          oracle.scores[lo128:lo128 + 128], oracle.ids[lo128:lo128 + 128],
+                          timed["partial_distance_update"], ring128)       # 22. dry run
+    for k in served:
+        served[k] += counts[k]
 
-    # ---------------------------------------------------------- 22. report
+    # ---------------------------------------------------------- 23. report
     # one entry per kernel route; a kernel's own count takes all of its
     # routes, so the f32-row and K <= 256 entries are the rest
     sources = {

@@ -2,9 +2,18 @@
 metadata and the mutable segmented data plane, probe selection, filters,
 the planner and its cost model, τ prewarm, the exact oracle, the
 two-stage int8 search, the host engine, the cross-segment merges, BM25
-and rank fusion, and the ring pipeline on a virtual mesh."""
+and rank fusion, and the ring pipeline on a virtual mesh. The cost
+model's hardware is the card's: ``H100_SXM`` takes the place of the
+reference's pod model, and ``calibrate_hardware`` fits one to measured
+rates."""
 
-from repro_torch.core.cost_model import HardwareModel, WorkloadStats, plan_cost
+from repro_torch.core.cost_model import (
+    H100_SXM,
+    HardwareModel,
+    WorkloadStats,
+    calibrate_hardware,
+    plan_cost,
+)
 from repro_torch.core.index import (
     TAG_MISSING,
     CompactionPlan,
@@ -66,7 +75,7 @@ __all__ = [
     "Segment", "SegmentedIndex", "DataSnapshot", "CompactionPlan",
     "Int8Quant", "quantize_vectors", "segment_device_bytes",
     "plan_search", "factorizations", "PlanDecision", "HardwareModel",
-    "WorkloadStats", "plan_cost", "harmony_search",
+    "H100_SXM", "calibrate_hardware", "WorkloadStats", "plan_cost", "harmony_search",
     "search_oracle", "delta_topk", "merge_topk", "two_stage_search",
     "filter_bitmap", "filter_excluded_rows", "filtered_assign_queries",
     "BM25Index", "tokenize", "segment_bm25", "reciprocal_rank_fusion",

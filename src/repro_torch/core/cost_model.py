@@ -20,12 +20,38 @@ from repro_torch.core.types import PartitionPlan
 @dataclass(frozen=True)
 class HardwareModel:
     """Per-node rates. Defaults ≈ the paper's testbed (dual-socket Xeon,
-    100 Gb/s links), the reference's defaults. A model of the H100 comes
-    with the port's roofline."""
+    100 Gb/s links), the reference's defaults. The port's model of the
+    card it runs on is :data:`H100_SXM` (in place of the reference's pod
+    model), or :func:`calibrate_hardware` from measured rates."""
 
     flops_rate: float = 2.0e11        # effective f32 FLOP/s per node
     net_bw: float = 12.5e9            # bytes/s per link (100 Gb/s)
     net_latency: float = 15e-6        # per-message latency (s)
+
+
+# One H100 SXM5 a node, from NVIDIA's H100 data sheet: 67 TFLOP/s fp32
+# outside the tensor cores (the ring's distance work is f32 with TF32
+# off), NVLink 4 at 900 GB/s both directions (450 GB/s a direction), and
+# about 2 µs a message (an NVLink put between two cards; a stated
+# figure, not the data sheet's).
+H100_SXM = HardwareModel(flops_rate=67e12, net_bw=450e9, net_latency=2e-6)
+
+
+def calibrate_hardware(*, distance_flops: float, distance_s: float,
+                       host_s_per_launch: float, copy_bytes: float,
+                       copy_s: float) -> HardwareModel:
+    """The model of the virtual mesh on one card, from measured inputs:
+    the distance kernel's effective FLOP/s at the ring's shape
+    (``distance_flops`` in ``distance_s`` a call), the host's cost per
+    launch as the per-message latency (a ring hand-off on one card is a
+    launch, not a message), and a device-to-device copy's bandwidth
+    (``copy_bytes`` in ``copy_s``) as the link's."""
+    for name, v in (("distance_s", distance_s), ("copy_s", copy_s),
+                    ("host_s_per_launch", host_s_per_launch)):
+        if not v > 0:
+            raise ValueError(f"{name}={v!r}: a measured time above 0")
+    return HardwareModel(flops_rate=distance_flops / distance_s,
+                         net_bw=copy_bytes / copy_s, net_latency=host_s_per_launch)
 
 
 

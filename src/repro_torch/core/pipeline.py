@@ -18,21 +18,27 @@ explicit loops on one GPU, with the same semantics:
   on the codes, with the block's s²) and each chunk ends with one
   :func:`kernels.ops.running_topk_update`;
 * the cross-shard merge is a stable sort, which orders ties by index as
-  ``lax.top_k`` does, so the result does not depend on the geometry.
+  ``lax.top_k`` does, so the result does not depend on the geometry;
+* with ``n_pods`` = P > 1 each pod holds a corpus super-shard of its own
+  (a leading [P] axis on the corpus operands) and runs the same V × B
+  ring over it; the pods then merge by the same stable sort, pod-major,
+  as the reference's ``all_gather`` over ``pod`` and ``lax.top_k`` do.
 
-Stats sum the tile skip maps over every (v, b, chunk, stage), as the
-reference's two ``psum``\\ s do.
+Stats sum the tile skip maps over every (pod, v, b, chunk, stage), as the
+reference's ``psum``\\ s do.
 
 The reference's whole-mesh step, ``make_spmd_search(scfg, mesh)``, takes
-``VirtualMesh(data=V, model=B)`` here, and its operands come from
-:func:`build_spmd_inputs` (shapes and dtypes: :func:`input_specs`). The
-reference's ``corpus_shardings`` / ``query_shardings`` /
-``input_shardings`` place those operands on a device mesh; the port runs
-on one card and has no counterpart.
+``VirtualMesh(data=V, model=B)`` here (``VirtualMesh(data=V, model=B,
+pod=P)`` with pods), and its operands come from :func:`build_spmd_inputs`
+(with pods, :func:`build_pod_inputs`; shapes and dtypes:
+:func:`input_specs`). The reference's ``corpus_shardings`` /
+``query_shardings`` / ``input_shardings`` place those operands on a
+device mesh; the port runs on one card and has no counterpart.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -54,8 +60,8 @@ from repro_torch.virtual_mesh import VirtualMesh
 class SpmdConfig:
     """Static geometry of the ring search step.
 
-    Only ``n_pods=1`` is carried by the port; other values raise
-    ``NotImplementedError``. ``x_dtype`` is ``"float32"`` or
+    ``n_pods`` > 1 stacks that many corpus super-shards on a leading axis
+    of the corpus operands; the queries are every pod's. ``x_dtype`` is ``"float32"`` or
     ``"bfloat16"`` (the resident rows of the fp32 precision; queries,
     norms and sums stay f32; the int8 precision keeps its codes whatever
     it says). ``precision`` is ``"fp32"`` or ``"int8"`` (the quantized
@@ -65,9 +71,9 @@ class SpmdConfig:
     ``False`` is not supported.
     """
 
-    v_shards: int          # vector shards
+    v_shards: int          # vector shards (per pod)
     d_blocks: int          # dimension blocks
-    n_pods: int = 1
+    n_pods: int = 1        # corpus super-shards
     qb: int = 64           # queries per step
     cap: int = 1024        # padded rows per shard
     dim: int = 128         # padded to d_blocks * db
@@ -107,8 +113,8 @@ class SpmdConfig:
                              f"got {self.metric!r}")
         if self.x_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(f"x_dtype={self.x_dtype!r}")
-        if self.n_pods != 1:
-            raise NotImplementedError(f"n_pods={self.n_pods}")
+        if not (isinstance(self.n_pods, int) and self.n_pods >= 1):
+            raise ValueError(f"n_pods={self.n_pods!r}")
         if self.use_pallas is False:
             raise NotImplementedError(
                 "use_pallas=False: the route follows the tensors' device")
@@ -287,10 +293,36 @@ def build_spmd_inputs(index, corpus: ShardedCorpus, q: np.ndarray, scfg: SpmdCon
     return {**arrays, **{k: torch.as_tensor(v, device=dev) for k, v in queries.items()}}
 
 
+CORPUS_OPERANDS = ("x_blocks", "xn2_blocks", "cluster_ids", "row_ids")
+
+
+def build_pod_inputs(index, corpus: ShardedCorpus, q: np.ndarray, scfg: SpmdConfig,
+                     probes: np.ndarray, tau0: np.ndarray) -> dict:
+    """:func:`build_spmd_inputs` for ``scfg.n_pods`` = P super-shards:
+    ``corpus`` has P · V vector shards, pod p owning shards p·V … p·V+V−1.
+    Every pod's rows are packed on one int8 grid (``index.int8_quant``,
+    the reference's ``scale2`` being one per dimension block, replicated
+    over the pods), then the corpus operands are regrouped on a leading
+    [P] axis as :func:`input_specs` lists them."""
+    P, V = scfg.n_pods, scfg.v_shards
+    if corpus.plan.v_shards != P * V:
+        raise ValueError(f"{corpus.plan.v_shards} shards, the pods need {P} x {V}")
+    flat = dataclasses.replace(scfg, v_shards=P * V, n_pods=1)
+    arrays = build_spmd_inputs(index, corpus, q, flat, probes, tau0)
+    x, xn2 = arrays["x_blocks"], arrays["xn2_blocks"]
+    arrays["x_blocks"] = x.reshape(P, V, *x.shape[1:])
+    arrays["xn2_blocks"] = xn2.reshape(xn2.shape[0], P, V, -1).transpose(0, 1).contiguous()
+    for name in ("cluster_ids", "row_ids"):
+        arrays[name] = arrays[name].reshape(P, V, -1)
+    return arrays
+
+
 def input_specs(scfg: SpmdConfig) -> dict:
     """The step's operands as ``meta`` tensors (shape and dtype, no
-    storage), keyed and shaped as the reference's ``ShapeDtypeStruct`` s."""
+    storage), keyed and shaped as the reference's ``ShapeDtypeStruct`` s:
+    the corpus operands lead with [n_pods] when there is more than one."""
     V, B, cap, D = scfg.v_shards, scfg.d_blocks, scfg.cap, scfg.dim
+    lead = (scfg.n_pods,) if scfg.n_pods > 1 else ()
     int8 = scfg.precision == "int8"
     xdt = torch.int8 if int8 else getattr(torch, scfg.x_dtype)
 
@@ -298,10 +330,10 @@ def input_specs(scfg: SpmdConfig) -> dict:
         return torch.empty(shape, dtype=dtype, device="meta")
 
     out = dict(
-        x_blocks=spec((V, cap, D), xdt),
-        xn2_blocks=spec((B, V, cap), torch.float32),
-        cluster_ids=spec((V, cap), torch.int32),
-        row_ids=spec((V, cap), torch.int32),
+        x_blocks=spec(lead + (V, cap, D), xdt),
+        xn2_blocks=spec(lead + (B, V, cap), torch.float32),
+        cluster_ids=spec(lead + (V, cap), torch.int32),
+        row_ids=spec(lead + (V, cap), torch.int32),
         queries=spec((scfg.qb, D), torch.int8 if int8 else torch.float32),
         probes=spec((scfg.qb, scfg.nprobe), torch.int32),
         tau0=spec((scfg.qb,), torch.float32),
@@ -449,14 +481,7 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
         shard_s.append(torch.cat(grp_s))
         shard_i.append(torch.cat(grp_i))
 
-    gs, gi = shard_s[0], shard_i[0]
-    if V > 1:
-        # merge across shards: [qb, V·K] in shard-major order, stable sort
-        as_ = torch.stack(shard_s, dim=1).reshape(scfg.qb, V * K)
-        ai = torch.stack(shard_i, dim=1).reshape(scfg.qb, V * K)
-        s, pos = torch.sort(as_, dim=1, stable=True)
-        gs = s[:, :K]
-        gi = torch.gather(ai, 1, pos[:, :K])
+    gs, gi = merge_parts(shard_s, shard_i, K)
     skipped = (torch.cat(skips).sum() if skips
                else torch.zeros((), dtype=torch.int64, device=dev))
     total = sum(int(s.numel()) for s in skips)
@@ -465,13 +490,29 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
     return gs, gi, stats
 
 
+def merge_parts(parts_s, parts_i, k: int):
+    """The top ``k`` of a row over its parts (each [qb, K] ascending): the
+    parts side by side, part-major ([qb, n·K]), then a stable sort, so
+    ties go by index as ``lax.top_k`` orders them. One part is returned
+    as it is."""
+    if len(parts_s) == 1:
+        return parts_s[0], parts_i[0]
+    qb = parts_s[0].shape[0]
+    as_ = torch.stack(parts_s, dim=1).reshape(qb, -1)
+    ai = torch.stack(parts_i, dim=1).reshape(qb, -1)
+    s, pos = torch.sort(as_, dim=1, stable=True)
+    return s[:, :k], torch.gather(ai, 1, pos[:, :k])
+
+
 def make_device_fn(scfg: SpmdConfig):
     """The step's body with the reference's argument order, ``(x_blocks,
     xn2_blocks, cluster_ids, row_ids, [scale2,] queries, probes, tau0)``:
     the whole mesh's operands as :func:`build_spmd_inputs` gives them
     (:func:`input_specs`' shapes), re-laid by :func:`resident_arrays` and
     searched by :func:`ring_chunk_search`, which covers every (v, b) in one
-    call. Returns (scores [qb, K], ids [qb, K], stats [2])."""
+    call; with pods, once a pod over its super-shard, the pods merged by
+    :func:`merge_parts` and their stats summed. Returns (scores [qb, K],
+    ids [qb, K], stats [2])."""
     want = input_specs(scfg)
     names = ["x_blocks", "xn2_blocks", "cluster_ids", "row_ids"] + (
         ["scale2"] if scfg.precision == "int8" else []) + ["queries", "probes", "tau0"]
@@ -487,24 +528,33 @@ def make_device_fn(scfg: SpmdConfig):
             if a.shape != want[name].shape or a.dtype != want[name].dtype:
                 raise ValueError(f"{name}: {tuple(a.shape)} {a.dtype}, the step takes "
                                  f"{tuple(want[name].shape)} {want[name].dtype}")
-        res = resident_arrays(args, scfg)
-        return ring_chunk_search(scfg, res["x_blk"], res["xn2_blk"], res["cluster_ids"],
-                                 res["row_ids"], args["queries"], args["probes"],
-                                 args["tau0"], scale2=res.get("scale2"))
+        if scfg.n_pods == 1:
+            pods = [args]
+        else:
+            pods = [{**args, **{k: args[k][p] for k in CORPUS_OPERANDS}}
+                    for p in range(scfg.n_pods)]
+        outs = []
+        for pod in pods:
+            res = resident_arrays(pod, scfg)
+            outs.append(ring_chunk_search(
+                scfg, res["x_blk"], res["xn2_blk"], res["cluster_ids"], res["row_ids"],
+                args["queries"], args["probes"], args["tau0"], scale2=res.get("scale2")))
+        scores, ids = merge_parts([o[0] for o in outs], [o[1] for o in outs], scfg.k)
+        return scores, ids, torch.stack([o[2] for o in outs]).sum(0)
 
     return device_fn
 
 
 def make_spmd_search(scfg: SpmdConfig, mesh: VirtualMesh):
     """The search step over ``mesh`` = ``VirtualMesh(data=scfg.v_shards,
-    model=scfg.d_blocks)``: :func:`make_device_fn`'s callable, returning
-    (scores, ids, stats) as the reference's ``jit(shard_map(...))`` does.
-    Any other mesh raises."""
+    model=scfg.d_blocks, pod=scfg.n_pods)``: :func:`make_device_fn`'s
+    callable, returning (scores, ids, stats) as the reference's
+    ``jit(shard_map(...))`` does. Any other mesh raises."""
     if not isinstance(mesh, VirtualMesh):
         raise NotImplementedError(
             f"make_spmd_search over {type(mesh).__name__}: the port runs on one card; "
             "pass VirtualMesh(data=v_shards, model=d_blocks)")
-    want = {"data": scfg.v_shards, "model": scfg.d_blocks}
+    want = VirtualMesh(data=scfg.v_shards, model=scfg.d_blocks, pod=scfg.n_pods).shape
     if mesh.shape != want:
         raise ValueError(f"the mesh is {mesh.shape}, the config's is {want}")
     return make_device_fn(scfg)

@@ -34,9 +34,20 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, where no
+    generator can live: the init helpers make their tensors there (shapes
+    and dtypes, no storage) and draw nothing."""
+
+    device = torch.device("meta")
+
+
 def _trunc_normal(gen: torch.Generator, shape) -> torch.Tensor:
-    """f32 standard normal truncated to [−2, 2] on ``gen``'s device."""
+    """f32 standard normal truncated to [−2, 2] on ``gen``'s device (on
+    ``meta``, the tensor undrawn)."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.device.type == "meta":
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
 
 

@@ -199,10 +199,14 @@ def init_params(cfg: ModelConfig, seed_or_generator: Union[int, torch.Generator]
     """The reference's param tree (keys, stacked shapes, dtypes), drawn as
     the reference draws it: truncated normals on [−2, 2] (dense weights
     scaled by 1/√fan_in), zero norms and biases. An int seeds a generator
-    on ``device`` (CUDA by default); a generator must live on ``device``."""
+    on ``device`` (CUDA by default); a generator must live on ``device``.
+    On ``device="meta"`` the tree has its keys, shapes and dtypes and no
+    values: nothing is drawn (the dry run's shape-only init)."""
     layout = unit_layout(cfg)
     dev = resolve_device(device)
-    if isinstance(seed_or_generator, torch.Generator):
+    if dev.type == "meta":
+        gen = cm.ShapeOnly()
+    elif isinstance(seed_or_generator, torch.Generator):
         gen = seed_or_generator
         if torch.device(gen.device).type != dev.type:
             raise ValueError(f"the generator is on {gen.device}, the params go to {dev}")
@@ -552,7 +556,9 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache,
     (or [3, B] for M-RoPE), each below the cache's ``max_len``. Returns
     (logits [B, V] f32, cache), the cache updated in place. (The
     reference's one-hot write drops a token at ``pos ≥ max_len``; the
-    port's index write raises on the CPU and fails on the card.)"""
+    port's index write raises on the CPU and fails on the card.)
+    ``ctx.n_units_override`` runs the first n units only (0: the head
+    alone), as ``forward`` does."""
     layout = unit_layout(cfg)
     if embeds is None:
         x = _scale_embed(cfg, params["embed"][token][:, None, :])       # [B,1,D]
@@ -560,7 +566,8 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache,
         x = embeds[:, None, :].to(cm.dtype_of(cfg))
     if ctx.n_units_override == 0:          # the zero-stack variant
         return _head(params, cfg, x)[:, 0], cache
-    for u in range(layout["n_units"]):
+    n_units = layout["n_units"] if ctx.n_units_override is None else ctx.n_units_override
+    for u in range(n_units):
         cache_u = {k: _at(v, u) for k, v in cache.items() if k != "tail_local"}
         unit = _at(params["units"], u)
         if layout["kind"] == "xlstm":

@@ -46,6 +46,10 @@ def _mesh_ep(mesh, data_axis: str, model_axis: str) -> int:
         raise NotImplementedError(
             f"moe_ffn_ep over VirtualMesh(model={mesh.model}): the port's EP layer "
             "keeps each expert whole on its rank; pass VirtualMesh(data=ep)")
+    if mesh.pod != 1:
+        raise NotImplementedError(
+            f"moe_ffn_ep over VirtualMesh(pod={mesh.pod}): the EP layer runs over "
+            "the data axis alone; pass VirtualMesh(data=ep)")
     return mesh.shape["data"]
 
 

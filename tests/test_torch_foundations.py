@@ -56,13 +56,18 @@ def test_imports_without_jax_or_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "IMPORTED" in proc.stdout
-    assert len(mods) >= 19, mods
+    assert len(mods) >= 73, mods
     # the served entry point's modules and the serving plane's are among them
     assert {"repro_torch.runtime", "repro_torch.runtime.elastic",
             "repro_torch.serve.engine", "repro_torch.core.planner",
             "repro_torch.core.cost_model"} <= set(mods)
     assert SERVING_PLANE <= set(mods), SERVING_PLANE - set(mods)
     assert {"repro_torch.models.recurrent", "repro_torch.virtual_mesh"} <= set(mods)
+    # the analysis layer (the dry run, its roofline and collective
+    # accounting, the meshes and the sharding rules)
+    assert {"repro_torch.launch.dryrun", "repro_torch.launch.hlo", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline", "repro_torch.sharding",
+            "repro_torch.sharding.rules"} <= set(mods)
 
 
 def test_source_scan_no_jax_or_reference_imports():

@@ -237,8 +237,8 @@ def test_make_spmd_search_refuses_what_the_port_does_not_carry(example):
         tpipe.make_spmd_search(scfg, VirtualMesh(4, model=2))
     with pytest.raises(NotImplementedError, match="one card"):
         tpipe.make_spmd_search(scfg, jax.make_mesh((1, 1), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="n_pods"):
-        tpipe.SpmdConfig(v_shards=2, d_blocks=2, n_pods=2)
+    with pytest.raises(ValueError, match="mesh"):                 # the config has no pods
+        tpipe.make_spmd_search(scfg, VirtualMesh(2, model=2, pod=2))
     step = tpipe.make_spmd_search(scfg, VirtualMesh(2, model=2))
     specs = tpipe.input_specs(scfg)
     zeros = [torch.zeros(s.shape, dtype=s.dtype) for s in specs.values()]
