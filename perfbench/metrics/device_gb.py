@@ -1,0 +1,6 @@
+"""device_gb: the peak of ``torch.cuda.max_memory_allocated`` over
+set-up and window, in GB (1e9 bytes)."""
+
+
+def read(run):
+    return run.memory_peak_bytes / 1e9 if run.memory_peak_bytes else None
