@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.index import (
     Int8Quant,
     ShardedCorpus,
@@ -412,6 +413,7 @@ def gather_host_candidates(arrays: dict, rows: np.ndarray,
     return out
 
 
+@tracing.traced("ring.enqueue")
 def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
                       q_blk, probes, tau0, scale2=None):
     """The ring search over the whole virtual mesh.
@@ -427,9 +429,13 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
     ring then computes the *quantized* L2, still monotone over dimension
     blocks, so the travelling-τ pruning and the running top-K stay exact
     within the quantized metric (the fp32 re-rank is the executor's).
+
+    The host's loop that enqueues all of it is the span ``ring.enqueue``,
+    which counts the (shard, group, chunk) passes as ``chunks``.
     """
     V, B, QG, K = scfg.v_shards, scfg.d_blocks, scfg.qg, scfg.k
     chunk, n_chunks, db = scfg.chunk, scfg.n_chunks, scfg.db
+    tracing.count(chunks=V * B * n_chunks)
     int8 = scfg.precision == "int8"
     dev = x_blk.device
     # q[g, b] = rows of group g restricted to dimension block b
@@ -485,8 +491,10 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
     skipped = (torch.cat(skips).sum() if skips
                else torch.zeros((), dtype=torch.int64, device=dev))
     total = sum(int(s.numel()) for s in skips)
+    # a fill, not a copy from the host: a blocking copy would wait here for
+    # the whole ring, inside ``ring.enqueue``, instead of at the caller's read
     stats = torch.stack([skipped.to(torch.int64),
-                         torch.tensor(total, dtype=torch.int64, device=dev)])
+                         torch.full((), total, dtype=torch.int64, device=dev)])
     return gs, gi, stats
 
 

@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.index import IVFIndex
 
 
@@ -100,8 +101,9 @@ def prewarm_tau(
     probe is sampled once (the reference samples it again).
 
     The sample table is host bookkeeping; the rows are gathered on the
-    host, uploaded and scored on the index's device, in the difference
-    form Σ(x−q)² as in the reference. Returns tau0 [NQ] float32 (+inf where the sample was
+    host (the span ``tau.gather``), uploaded (``tau.upload``) and scored
+    on the index's device, in the difference form Σ(x−q)² as in the
+    reference. Returns tau0 [NQ] float32 (+inf where the sample was
     smaller than K). ``rows_dtype`` (bf16) scores the sampled rows as a
     ring over rows stored in that type sees them: rounded, then widened,
     so τ0 bounds the k-th distance in that metric.
@@ -133,7 +135,10 @@ def prewarm_tau(
     if dead_rows is not None:
         msk &= ~dead_rows[mat]
     dev = index.device
-    cand = index.x[torch.as_tensor(mat)].to(dev, non_blocking=True)  # [NQ, W, D]
+    with tracing.span("tau.gather"):
+        cand = index.x[torch.as_tensor(mat)]                    # [NQ, W, D]
+    with tracing.span("tau.upload"):
+        cand = cand.to(dev, non_blocking=True)
     if rows_dtype is not None:
         cand = cand.to(rows_dtype).float()
     qt = torch.as_tensor(np.asarray(q, np.float32)).to(dev)

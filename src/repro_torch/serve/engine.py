@@ -48,6 +48,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.config import HarmonyConfig
 from repro_torch.core.fusion import BM25Index, reciprocal_rank_fusion, segment_bm25
@@ -72,6 +73,27 @@ from repro_torch.core.types import DataPlane, Filter, SearchRequest, SearchResul
 from repro_torch.runtime.elastic import ClusterState
 from repro_torch.serve.executor import ExecutorConfig, SpmdExecutor
 from repro_torch.serve.scheduler import SchedulerConfig, ServingScheduler
+
+
+LATENCY_SAMPLES = 1 << 20
+
+
+class LatencySamples(deque):
+    """The newest :data:`LATENCY_SAMPLES` timings of a live counter, so a
+    long-running front end stops growing. Equal to a list or deque that
+    holds the same values in the same order."""
+
+    def __init__(self, iterable=(), maxlen: int = LATENCY_SAMPLES):
+        super().__init__(iterable, maxlen)
+
+    def __eq__(self, other):
+        if isinstance(other, (list, deque)):
+            return list(self) == list(other)
+        return NotImplemented
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
 
 
 @dataclass
@@ -109,8 +131,9 @@ class ServeStats:
     capacity_batches: int = 0        # fired early because the queue hit its bound
     skew_replans: int = 0            # re-plans triggered by hot-mass drift
     hedged_batches: int = 0          # batch dispatches whose hedge fired
-    queue_wait_ms: List[float] = field(default_factory=list)     # per request
-    request_latency_ms: List[float] = field(default_factory=list)  # arrival→done
+    # per request (arrival→dispatch, arrival→done), the newest LATENCY_SAMPLES
+    queue_wait_ms: LatencySamples = field(default_factory=LatencySamples)
+    request_latency_ms: LatencySamples = field(default_factory=LatencySamples)
 
     # --- resilience accounting (fleet circuit breaker + dispatch retries)
     replica_failures: int = 0        # replica executions that raised
@@ -156,13 +179,6 @@ class ServeStats:
 
     def queue_wait_pct(self, p: float) -> float:
         return float(np.percentile(self.queue_wait_ms, p)) if self.queue_wait_ms else 0.0
-
-    def request_latency_pct(self, p: float) -> float:
-        return (
-            float(np.percentile(self.request_latency_ms, p))
-            if self.request_latency_ms
-            else 0.0
-        )
 
     def _pct_or_none(self, arr: List[float], p: float) -> Optional[float]:
         # empty-array quantiles raise in numpy; a trace where nothing
@@ -610,6 +626,7 @@ class HarmonyServer(DataPlane):
         cands.sort(key=lambda c: (-c[0], c[1]))
         return np.array([e for _, e in cands[:k]], np.int64)
 
+    @tracing.traced("engine.search_batch")
     def search_batch(
         self,
         queries,
@@ -677,16 +694,18 @@ class HarmonyServer(DataPlane):
             # segments were retired while it was read; generations only
             # move forward, so a fresh snapshot converges
         primary = self._primary(snap.segments)
+        tracing.count(segments=len(states))
         seg_results = []
         for st in states:
             seg = st.segment
             dead_arg = filter_excluded_rows(seg.index, flt, snap.dead_rows[seg.seg_id])
-            if flt is None:
-                probes = assign_queries(seg.index, queries)
-            else:
-                # predicate pushdown: clusters with no allowed live row
-                # drop out of probe selection
-                probes = filtered_assign_queries(seg.index, queries, dead_arg)
+            with tracing.span("engine.assign_queries"):
+                if flt is None:
+                    probes = assign_queries(seg.index, queries)
+                else:
+                    # predicate pushdown: clusters with no allowed live row
+                    # drop out of probe selection
+                    probes = filtered_assign_queries(seg.index, queries, dead_arg)
             # the placement policy's cluster-hotness EWMA sees every
             # segment's probe selection
             self.data.note_probes(seg.seg_id, probes)

@@ -57,6 +57,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.index import IVFIndex, assign_queries, preassign
 from repro_torch.core.pipeline import (
@@ -267,6 +268,7 @@ class SpmdExecutor:
         self.prefetch_misses = 0
         self.prefetch_staged = 0
         self.upload_ms = 0.0
+        self._list_rows: Optional[np.ndarray] = None    # rows a list, while tracing
 
     def warmup(self, k: Optional[int] = None, nprobe=None):
         """Build and run every (qb, cap) bucket once, for each probe-table
@@ -380,24 +382,22 @@ class SpmdExecutor:
         host = self.tier == "host"
 
         def step(src, qarr: dict):
+            with tracing.span("executor.upload"):
+                if not host:
+                    rows_t = torch.as_tensor(src.astype(np.int64)).to(dev)
+                tables = [torch.as_tensor(qarr[n]).to(dev)
+                          for n in ("queries", "probes", "tau0")]
             if host:
                 buf = src.buf
                 if buf.copied is not None:
                     torch.cuda.current_stream(dev).wait_event(buf.copied)
                 cand = [buf.dev[n] for n in _CAND]
             else:
-                rows_t = torch.as_tensor(src.astype(np.int64)).to(dev)
                 cand = gather_local_candidates(
                     rows_t, res["x_blk"], res["xn2_blk"], res["cluster_ids"],
                     res["row_ids"],
                 )
-            out = ring_chunk_search(
-                bscfg, *cand,
-                torch.as_tensor(qarr["queries"]).to(dev),
-                torch.as_tensor(qarr["probes"]).to(dev),
-                torch.as_tensor(qarr["tau0"]).to(dev),
-                scale2=scale2,
-            )
+            out = ring_chunk_search(bscfg, *cand, *tables, scale2=scale2)
             if host and buf.copied is not None:
                 buf.consumed = torch.cuda.Event()
                 buf.consumed.record(torch.cuda.current_stream(dev))
@@ -542,6 +542,15 @@ class SpmdExecutor:
                 },
             )
 
+        with tracing.span("executor.search_batch") as sp:
+            return self._search_bucket(queries, k, k_step, nprobe, probes, dead_rows, sp)
+
+    def _search_bucket(self, queries: np.ndarray, k: int, k_step: int,
+                       nprobe: Optional[int], probes: Optional[np.ndarray],
+                       dead_rows: Optional[np.ndarray], sp) -> SearchResult:
+        """:meth:`search_batch` of at most the largest qb bucket's queries,
+        inside its span ``sp``."""
+        nq = queries.shape[0]
         t0 = time.perf_counter()
         if probes is None:
             if nprobe is not None and nprobe <= 0:
@@ -549,7 +558,8 @@ class SpmdExecutor:
                 probes = np.zeros((nq, 0), np.int32)
             else:
                 probes = assign_queries(self.index, queries, nprobe)
-        rows, cap_b = self._gather_rows(probes, dead_rows)
+        with tracing.span("executor.gather_rows"):
+            rows, cap_b = self._gather_rows(probes, dead_rows)
         if cap_b == 0:
             dt = time.perf_counter() - t0
             self.dispatches += 1
@@ -571,15 +581,17 @@ class SpmdExecutor:
         # τ prewarm over the original probe table (pad columns never reach
         # it); int8 stage 1 scores in the quantized metric, where an
         # fp32-space τ is no upper bound, so it starts at +inf
-        tau0 = (
-            prewarm_tau(self.index, queries, probes, k,
-                        self.index.cfg.prewarm_samples, self.metric,
-                        dead_rows=dead_rows,
-                        rows_dtype=(torch.bfloat16 if self.cfg.x_dtype == "bfloat16"
-                                    else None))
-            if self.prune and not int8
-            else np.full((nq,), np.inf, np.float32)
-        )
+        if self.prune and not int8:
+            with tracing.span("executor.prewarm_tau"):
+                tau0 = prewarm_tau(self.index, queries, probes, k,
+                                   self.index.cfg.prewarm_samples, self.metric,
+                                   dead_rows=dead_rows,
+                                   rows_dtype=(torch.bfloat16 if self.cfg.x_dtype == "bfloat16"
+                                               else None))
+        else:
+            tau0 = np.full((nq,), np.inf, np.float32)
+        if sp.on:
+            sp.count(pairs_needed=self._pairs_needed(probes))
         # step-cache alignment: pad a narrower probe table (-2 columns match
         # no cluster) up to the smallest width a step already exists for
         w = probes.shape[1]
@@ -611,7 +623,8 @@ class SpmdExecutor:
             gs, gi, st = step(up, qarr)
         else:
             gs, gi, st = step(rows, qarr)
-        scores = gs[:nq].cpu().numpy()
+        with tracing.span("executor.wait"):
+            scores = gs[:nq].cpu().numpy()
         rows_k = gi[:nq].cpu().numpy().astype(np.int64)
         upload_ms = 0.0
         if up is not None:
@@ -630,6 +643,8 @@ class SpmdExecutor:
         self.wall_s += dt
         self.tile_skipped += int(st[0])
         self.tile_total += int(st[1])
+        sp.count(qb=qb_b, cap=cap_b, step_built=self.compiles > compiles_before,
+                 pairs_scored=(int(st[1]) - int(st[0])) * bscfg.tile_m * bscfg.tile_n)
         return SearchResult(
             ids=ids,
             scores=scores,
@@ -650,6 +665,19 @@ class SpmdExecutor:
                 "upload_ms": upload_ms,
             },
         )
+
+    def _pairs_needed(self, probes: np.ndarray) -> int:
+        """The (query, row, dimension block) triples the batch needs
+        scored: each query's distinct probed lists' rows, over every
+        dimension block."""
+        if self._list_rows is None:
+            slices = self.corpus.cluster_slices
+            self._list_rows = np.array([slices[c][2] - slices[c][1]
+                                        for c in range(len(slices))], np.int64)
+        p = np.sort(probes, axis=1)
+        keep = p >= 0
+        keep[:, 1:] &= p[:, 1:] != p[:, :-1]
+        return int(self._list_rows[p[keep]].sum()) * self._base_scfg.d_blocks
 
     # -------------------------------------------------------------- rerank
     def _rerank(self, queries: np.ndarray, s1_scores: np.ndarray,

@@ -67,6 +67,7 @@ import numpy as np
 import time
 import warnings
 
+from repro_torch import tracing
 from repro_torch._device import bind_device, is_device_fault
 from repro_torch.core.types import DataPlane, SearchRequest
 from repro_torch.serve.cache import QueryCache, build_query_cache
@@ -380,6 +381,19 @@ class ServingFrontend(DataPlane):
 
     def _run_batch(self, batch, futs, dispatch_s: float, trigger: str,
                    bid: int):
+        with tracing.span("frontend.batch", bid=bid, queries=len(batch),
+                          trigger=trigger):
+            self._serve_batch(batch, futs, dispatch_s, trigger, bid)
+        if self.on_batch is not None:
+            try:
+                self.on_batch(bid, self)
+            except Exception as e:
+                warnings.warn(f"on_batch callback failed on batch {bid}: {e!r}")
+
+    def _serve_batch(self, batch, futs, dispatch_s: float, trigger: str,
+                     bid: int):
+        """Run one batch and resolve its futures (and its coalesced
+        followers'), failed or not."""
         # per-request deadline enforcement at dispatch: a request whose
         # absolute deadline passed while it queued degrades to the
         # sentinel shape, never executes. Its coalesced followers
@@ -415,13 +429,6 @@ class ServingFrontend(DataPlane):
             with self._mu:
                 self._inflight -= 1
                 self._mu.notify_all()
-            if self.on_batch is not None:
-                try:
-                    self.on_batch(bid, self)
-                except Exception as e:
-                    warnings.warn(
-                        f"on_batch callback failed on batch {bid}: {e!r}"
-                    )
             return
         # epoch read before execution: cache entries from this batch are
         # stamped pre-execute, so a concurrent write that lands mid-batch
@@ -431,20 +438,22 @@ class ServingFrontend(DataPlane):
         err = None
         try:
             oldest_s = min(req.arrival_s for req in batch)
-            # partition by request options (filter/hybrid/precision/k):
-            # each group shares one execution context; the knob-free batch
-            # is one group and one positional execute_wall call — the
-            # pre-request-API behaviour
-            groups = {}
-            for row, req in enumerate(batch):
-                groups.setdefault(req.options_key(), []).append(row)
 
             def _run_all():
                 ids_out = [None] * len(batch)
                 scores_out = [None] * len(batch)
                 d_max = self.clock.now()
-                for key, rows in groups.items():
-                    queries = np.stack([batch[r].query for r in rows])
+                # partition by request options (filter/hybrid/precision/k):
+                # each group shares one execution context; the knob-free
+                # batch is one group and one positional execute_wall call —
+                # the pre-request-API behaviour
+                with tracing.span("frontend.stack"):
+                    groups = {}
+                    for row, req in enumerate(batch):
+                        groups.setdefault(req.options_key(), []).append(row)
+                    stacked = [(key, rows, np.stack([batch[r].query for r in rows]))
+                               for key, rows in groups.items()]
+                for key, rows, queries in stacked:
                     if key is None:
                         res, g_done = self.target.execute_wall(
                             queries, self.k, bid, self.clock
@@ -537,14 +546,16 @@ class ServingFrontend(DataPlane):
             self._mu.notify_all()
         # complete futures outside the lock: done-callbacks run inline
         if err is not None:
-            for fut in futs:
-                fut.set_exception(err)
-            for fl in fols:
-                for _, ffut in fl:
-                    ffut.set_exception(err)
+            with tracing.span("frontend.fanout"):
+                for fut in futs:
+                    fut.set_exception(err)
+                for fl in fols:
+                    for _, ffut in fl:
+                        ffut.set_exception(err)
             if is_device_fault(err):
                 self._stop_on_fault(err)
-        else:
+            return
+        with tracing.span("frontend.fanout"):
             for row, (req, fut) in enumerate(zip(batch, futs)):
                 fut.set_result(
                     RequestResult(
@@ -569,18 +580,13 @@ class ServingFrontend(DataPlane):
                             batch_id=bid,
                         )
                     )
-            try:
-                with self._skew_mu:         # serialized hot-mass check
-                    self._skew.after_batch()
-            except Exception as e:          # results already delivered —
-                warnings.warn(              # surface, don't lose, the error
-                    f"skew-replan check failed on batch {bid}: {e!r}"
-                )
-        if self.on_batch is not None:
-            try:
-                self.on_batch(bid, self)
-            except Exception as e:
-                warnings.warn(f"on_batch callback failed on batch {bid}: {e!r}")
+        try:
+            with self._skew_mu:         # serialized hot-mass check
+                self._skew.after_batch()
+        except Exception as e:          # results already delivered —
+            warnings.warn(              # surface, don't lose, the error
+                f"skew-replan check failed on batch {bid}: {e!r}"
+            )
 
     def _stop_on_fault(self, err: BaseException) -> None:
         """A device fault stops the front-end: it refuses new submissions

@@ -35,6 +35,7 @@ from repro_torch.serve import (
     ShedError,
     VirtualClock,
 )
+from repro_torch.serve.engine import LATENCY_SAMPLES
 from test_executor import assert_matches_oracle
 from test_torch_segments import ivf_arrays
 
@@ -317,6 +318,19 @@ def test_clocks():
     assert m.now() - t0 >= 0.004
     m.advance_to(1e9)
     assert m.now() < 1e6
+
+
+def test_latency_samples_keep_the_newest():
+    st = ServeStats()
+    n = LATENCY_SAMPLES + 3
+    for i in range(n):
+        st.queue_wait_ms.append(float(i))
+    assert len(st.queue_wait_ms) == LATENCY_SAMPLES
+    assert st.queue_wait_ms[0] == 3.0 and st.queue_wait_ms[-1] == n - 1
+    assert st.summary()["p50_queue_wait_ms"] == float(np.percentile(np.arange(3, n), 50))
+    st.request_latency_ms.extend([1.0, 2.0])
+    assert st.request_latency_ms == [1.0, 2.0] and [1.0, 2.0] == st.request_latency_ms
+    assert st.request_latency_ms != [2.0, 1.0] and not st.request_latency_ms != [1.0, 2.0]
 
 
 # ------------------------------------------------------ faults (wall clock)
