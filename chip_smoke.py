@@ -58,7 +58,9 @@ on inputs that follow each measured split (``time_topk_path_shaped``).
    (three parts per merge). Every batch must equal an oracle built without
    the ring or the merge kernel (``engine_oracle``), hold no deleted id,
    and launch the top-K kernel exactly once per part beyond the ring's
-   launches (``RingTopkLaunches``). Then an int8 server on the same data
+   launches and probe selection's (``RingTopkLaunches``); probe selection
+   runs on the card, one distance and one top-K launch per sealed segment
+   of each unfiltered batch. Then an int8 server on the same data
    at k = 10 and k = 20 (K' = 80: exact fp32 scores, live distinct ids,
    recall ≥ 0.98 against the fp32 server), a per-batch precision override
    on each server (served by executors of that precision, equal to the
@@ -916,16 +918,19 @@ def assert_topk_matches(scores, ids, want_s, want_i, what):
 
 
 class RingTopkLaunches:
-    """Counts the top-K kernel launches made inside
-    ``SpmdExecutor.search_batch`` (the ring's), so that a served batch's
-    launches split into the ring's and the merge's. A batch the executor
-    splits counts once, at its outer call."""
+    """Splits the kernel launches of served batches three ways: the top-K
+    launches made inside ``SpmdExecutor.search_batch`` (the ring's), every
+    launch made inside ``SpmdExecutor.select_probes`` (probe selection on
+    the card, ``probe``, with ``selects`` its calls) and the rest (the
+    merge's). A batch the executor splits counts once, at its outer call."""
 
     def __init__(self):
         from repro_torch.serve.executor import SpmdExecutor
 
         self.cls, self.orig = SpmdExecutor, SpmdExecutor.search_batch
-        self.depth = self.ring = 0
+        self.orig_select = SpmdExecutor.select_probes
+        self.depth = self.ring = self.selects = 0
+        self.probe = {}
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -941,11 +946,39 @@ class RingTopkLaunches:
                 self.depth -= 1
                 self.ring += ops.launch_counts()["running_topk_update"] - before
 
+        def select(ex, *a, **kw):
+            before = ops.launch_counts()
+            try:
+                return self.orig_select(ex, *a, **kw)
+            finally:
+                after = ops.launch_counts()
+                self.selects += 1
+                for n in after:
+                    self.probe[n] = self.probe.get(n, 0) + after[n] - before[n]
+
         self.cls.search_batch = wrapped
+        self.cls.select_probes = select
         return self
 
     def __exit__(self, *exc):
         self.cls.search_batch = self.orig
+        self.cls.select_probes = self.orig_select
+
+    def outside_probes(self, before, after):
+        """The launches between two ``ops.launch_counts()`` around the
+        block, less probe selection's."""
+        return {n: after[n] - before[n] - self.probe.get(n, 0) for n in after}
+
+    def check_probes(self, n_segments, what):
+        """Probe selection made on the card for each of ``n_segments``
+        sealed segments (0 for a filtered batch, which keeps numpy's): one
+        distance and one route-1 top-K launch each, and nothing else."""
+        got = {n: c for n, c in self.probe.items() if c}
+        want = ({"partial_distance_update": n_segments, "running_topk_update": n_segments}
+                if n_segments else {})
+        assert self.selects == n_segments and got == want, (
+            f"{what}: {self.selects} probe selections for {n_segments} segments, "
+            f"launches {got}")
 
 
 def executors_wall(srv):
@@ -1062,18 +1095,19 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
                 res = srv.search_batch(q)
             after = ops.launch_counts()
             exec_wall = executors_wall(srv) - exec_wall
-            launches = {k: after[k] - before[k] for k in after}
+            launches = ring.outside_probes(before, after)
             merge = launches["running_topk_update"] - ring.ring
             want_s, want_i = engine_oracle(dev, data.snapshot(), q, 10)
             assert_topk_matches(res.scores, res.ids, want_s, want_i, f"serve_engine {tag} nq={n}")
             assert not np.isin(res.ids, list(deleted)).any(), f"{tag}: a deleted id came back"
             assert merge == n_parts, f"{tag} nq={n}: {merge} merge launches for {n_parts} parts"
             assert res.stats["segments"] == n_parts - 1
+            ring.check_probes(n_parts - 1, f"serve_engine {tag} nq={n}")
             log(phase="serve_engine", burst=tag, nq=n, wall_ms=res.stats["wall_s"] * 1e3,
                 executors_wall_ms=exec_wall * 1e3,
                 server_overhead_ms=(res.stats["wall_s"] - exec_wall) * 1e3,
                 parts=n_parts, ring_topk_launches=ring.ring, merge_topk_launches=merge,
-                launches=launches, delta_candidates=res.stats["delta_candidates"],
+                probe_select_launches=ring.probe, launches=launches, delta_candidates=res.stats["delta_candidates"],
                 summary={k: v for k, v in srv.stats.summary().items() if v})
             lo += n
 
@@ -1123,28 +1157,31 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
         check_int8_rows(dev, data, q128, res8, k)
         recall = recall_at_k(res8.ids, res32.ids)
         assert recall >= 0.98, f"int8 server recall@{k} vs fp32 {recall}"
+        ring.check_probes(data.n_segments, f"serve_engine_int8 k={k}")
         res8_by_k[k], res32_by_k[k] = res8, res32
+        launches = ring.outside_probes(before, after)
         log(phase="serve_engine_int8", nq=128, k=k, rerank_k=k * 4, setup_s=setup8,
             wall_ms=res8.stats["wall_s"] * 1e3, recall_vs_fp32_server=recall,
             ring_topk_launches=ring.ring,
-            merge_topk_launches=after["running_topk_update"] - before["running_topk_update"]
-            - ring.ring,
-            launches={n: after[n] - before[n] for n in after})
+            merge_topk_launches=launches["running_topk_update"] - ring.ring,
+            probe_select_launches=ring.probe, launches=launches)
     # a per-batch precision override: served by the segments' executors of
     # that precision (built on first use), equal to the other server's batch
     for srv_a, prec, k, want in ((srv, "int8", 20, res8_by_k[20]),
                                  (srv8, "fp32", 10, res32_by_k[10])):
         before = ops.launch_counts()
-        res_o = srv_a.search_batch(q128, k=k, precision=prec)
+        with RingTopkLaunches() as ring:
+            res_o = srv_a.search_batch(q128, k=k, precision=prec)
         after = ops.launch_counts()
         assert_topk_matches(res_o.scores, res_o.ids, want.scores, want.ids,
                             f"precision override {prec}")
+        launches = ring.outside_probes(before, after)
         dist = "int8_partial_distance_update" if prec == "int8" else "partial_distance_update"
-        assert after[dist] > before[dist], f"override {prec}: no {dist} launch"
+        assert launches[dist] > 0, f"override {prec}: no {dist} launch"
         assert all(prec in st.executors for st in srv_a._seg_states.values())
         log(phase="serve_engine_override", precision=prec, nq=128, k=k,
-            wall_ms=res_o.stats["wall_s"] * 1e3,
-            launches={n: after[n] - before[n] for n in after})
+            wall_ms=res_o.stats["wall_s"] * 1e3, probe_select_launches=ring.probe,
+            launches=launches)
     assert all(st.corpus is None for s_ in (srv, srv8) for st in s_._seg_states.values()), \
         "the spmd backend built a host-engine layout"
     assert_path_on_kernels(ops.launch_counts(), (
@@ -1177,7 +1214,8 @@ def serve_engine(dev, smi, index, ds, q_all, sizes):
         with RingTopkLaunches() as ring:
             res = srv.search_batch(vec)
         after = ops.launch_counts()
-        merge = after["running_topk_update"] - before["running_topk_update"] - ring.ring
+        merge = ring.outside_probes(before, after)["running_topk_update"] - ring.ring
+        ring.check_probes(data.n_segments, f"int64 id ({where})")
         assert int(res.ids[0, 0]) == big and abs(float(res.scores[0, 0])) <= 1e-3, \
             f"int64 id ({where}): {res.ids[0]} {res.scores[0]}"
         assert ring.ring > 0 and merge == n_parts, \
@@ -1247,8 +1285,9 @@ def serve_large_k(dev, smi, data, q128):
         with RingTopkLaunches() as ring:
             res = srv_.search_batch(q128, k=k)
         after = ops.launch_counts()
-        launches = {n: after[n] - before[n] for n in after}
+        launches = ring.outside_probes(before, after)
         merge = launches["running_topk_update"] - ring.ring
+        ring.check_probes(data.n_segments, f"large k {prec}")
         want_s, want_i = engine_oracle(dev, data.snapshot(), q128, k)
         if prec == "fp32":
             assert_topk_matches(res.scores, res.ids, want_s, want_i, f"large k fp32 k={k}")
@@ -1268,7 +1307,8 @@ def serve_large_k(dev, smi, data, q128):
             ring_k=k if prec == "fp32" else 4 * k, wall_ms=res.stats["wall_s"] * 1e3,
             first_batch_wall_ms=first_ms,
             recall_vs_oracle=recall, parts=n_parts, ring_topk_launches=ring.ring,
-            merge_topk_launches=merge, launches=launches, card=smi)
+            merge_topk_launches=merge, probe_select_launches=ring.probe,
+            launches=launches, card=smi)
     counts = ops.launch_counts()
     assert_path_on_kernels(counts, ("partial_distance_update", "int8_partial_distance_update",
                                     "running_topk_update", "running_topk_update_large_k"),
@@ -1302,8 +1342,9 @@ def serve_huge_k(dev, smi, data, q8):
             res = srv_.search_batch(q8, k=k)         # the first batch: executor builds too
         after = ops.launch_counts()
         warm = srv_.search_batch(q8, k=k)
-        launches = {n: after[n] - before[n] for n in after}
+        launches = ring.outside_probes(before, after)
         merge = launches["running_topk_update"] - ring.ring
+        ring.check_probes(data.n_segments, f"huge k {prec}")
         want_s, want_i = engine_oracle(dev, data.snapshot(), q8, k)
         recall = recall_at_k(res.ids, want_i)
         if prec == "fp32":
@@ -1322,7 +1363,7 @@ def serve_huge_k(dev, smi, data, q8):
             ring_k=k if prec == "fp32" else 4 * k, wall_ms=warm.stats["wall_s"] * 1e3,
             first_batch_wall_ms=res.stats["wall_s"] * 1e3, recall_vs_oracle=recall,
             parts=n_parts, ring_topk_launches=ring.ring, merge_topk_launches=merge,
-            launches=launches, card=smi)
+            probe_select_launches=ring.probe, launches=launches, card=smi)
     counts = ops.launch_counts()
     assert_path_on_kernels(counts, ("partial_distance_update", "int8_partial_distance_update",
                                     "running_topk_update", "running_topk_update_huge_k"),
@@ -2005,6 +2046,7 @@ def serve_filtered_and_tiered(dev, smi, index, ds, q_all):
             launches = {n: after[n] - before[n] for n in after}
             merge = launches["running_topk_update"] - ring.ring
             assert merge == 2, f"filtered: {merge} merge launches for 2 parts"
+            ring.check_probes(0, "filtered")
             assert all(n == 1 for n in ex.trace_counts.values()), "a bucket built twice"
             new_keys = sorted(set(ex.trace_counts) - keys0)
             if hybrid:

@@ -11,8 +11,10 @@ of each packed row, cluster offsets, cluster slices and the packed-row
 permutation. The V × B layout that ``preassign`` makes is host-side too:
 the executor packs it and uploads the card's one copy of the rows.
 Probe selection (``assign_queries``) is the reference's host-side numpy
-computation. The int8 tier's codes and grids (``Int8Quant``,
-``quantize_vectors``) are host numpy too, made from the host rows.
+computation (the engine's unfiltered batches on a card choose theirs on
+the card instead: ``core.search.kernel_assign_queries``). The int8
+tier's codes and grids (``Int8Quant``, ``quantize_vectors``) are host
+numpy too, made from the host rows.
 
 Mutability is segment-based, as in the reference: a
 :class:`SegmentedIndex` is an ordered set of immutable sealed

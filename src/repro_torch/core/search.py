@@ -5,7 +5,8 @@ compiles to a per-segment allowed bitmap (:func:`filter_bitmap`, cached
 on the index), merges with the tombstones into one excluded mask
 (:func:`filter_excluded_rows`), and prunes and widens probe selection
 (:func:`filtered_assign_queries`). Every engine then masks excluded rows
-as it masks dead ones.
+as it masks dead ones. :func:`kernel_assign_queries` is the unfiltered
+probe selection on the device, with the ring's distance and top-K kernels.
 
 On the index's device, as plain PyTorch (the host rows they read are
 uploaded per call):
@@ -135,6 +136,43 @@ def filtered_assign_queries(
     bad = ~np.isfinite(picked)
     if bad.any():
         probes = np.where(bad, probes[:, :1], probes)
+    return probes
+
+
+def kernel_assign_queries(centers: torch.Tensor, cn2: torch.Tensor,
+                          q: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """:func:`~repro_torch.core.index.assign_queries` with the port's own
+    kernels, on the device of its tensors: one
+    :func:`~repro_torch.kernels.ops.partial_distance_update` launch gives
+    the [NQ, nlist] f32 L2 distances ``(‖q‖² + ‖c‖²) − 2 q·c`` (FMAs, no
+    tensor cores), one :func:`~repro_torch.kernels.ops.running_topk_update`
+    launch keeps the ``nprobe`` nearest, ascending. ``centers`` [nlist, D]
+    and ``cn2`` [nlist] (their squared norms) stay on the device between
+    calls; ``q`` [NQ, D] f32. Returns [NQ, nprobe] int32 centroid ids
+    (``1 <= nprobe <= nlist``, which the caller's route choice,
+    ``serve.engine.probes_on_card``, ensures); every temporary is freed
+    on return.
+
+    Distances are L2 whatever the index's metric, as in
+    ``assign_queries``; the order of the f32 sums differs from numpy's,
+    so a probe may differ only where two centroid distances lie within
+    f32 rounding of each other."""
+    nq, nlist = q.shape[0], centers.shape[0]
+    topk_update.check_limits(nprobe, nlist)
+    dev = q.device
+    dist, _ = ops.partial_distance_update(
+        centers, cn2, q, (q * q).sum(1),
+        torch.zeros((nq, nlist), dtype=torch.float32, device=dev),
+        torch.full((nq,), torch.inf, dtype=torch.float32, device=dev),
+        prune=False, metric="l2",
+    )
+    cols = torch.arange(nlist, dtype=torch.int32, device=dev)
+    _, probes = ops.running_topk_update(
+        dist, cols.expand(nq, nlist),
+        torch.full((nq, nprobe), torch.inf, dtype=torch.float32, device=dev),
+        torch.full((nq, nprobe), -1, dtype=torch.int32, device=dev),
+        k=nprobe,
+    )
     return probes
 
 

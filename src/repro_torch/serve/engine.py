@@ -17,6 +17,12 @@ bumps the generation and the server swaps to the new segment set on its
 next batch (or eagerly through :meth:`HarmonyServer.adopt` after
 :meth:`HarmonyServer.prepare_segments`).
 
+On the spmd backend, an unfiltered batch's probes are chosen on the
+segment executor's card when it has one (:func:`probes_on_card`,
+:meth:`~repro_torch.serve.executor.SpmdExecutor.select_probes`): the
+port's distance and top-K kernels score the centroids, and only the
+[NQ, nprobe] table comes back to the host.
+
 A metadata filter (``flt=`` or a request's ``filter``) is a per-batch
 tombstone set: each segment's excluded rows steer probe selection
 (:func:`~repro_torch.core.search.filtered_assign_queries`, widened at low
@@ -47,6 +53,7 @@ from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch import tracing
 from repro_torch._device import DeviceLike, resolve_device
@@ -76,6 +83,15 @@ from repro_torch.serve.scheduler import SchedulerConfig, ServingScheduler
 
 
 LATENCY_SAMPLES = 1 << 20
+
+
+def probes_on_card(device: torch.device, filtered: bool, nprobe: int,
+                   nlist: int) -> bool:
+    """Whether an spmd batch's probe selection runs on its executor's card
+    (:meth:`SpmdExecutor.select_probes`) rather than in numpy
+    (``assign_queries``): on a CUDA device, without a filter (whose
+    pushdown and widening stay on the host), for ``1 <= nprobe <= nlist``."""
+    return device.type == "cuda" and not filtered and 1 <= nprobe <= nlist
 
 
 class LatencySamples(deque):
@@ -699,22 +715,26 @@ class HarmonyServer(DataPlane):
         for st in states:
             seg = st.segment
             dead_arg = filter_excluded_rows(seg.index, flt, snap.dead_rows[seg.seg_id])
-            with tracing.span("engine.assign_queries"):
-                if flt is None:
+            ex = self._executor_for(st, prec) if backend == "spmd" else None
+            on_card = ex is not None and probes_on_card(
+                ex.device, flt is not None, seg.index.cfg.nprobe, seg.index.nlist)
+            with tracing.span("engine.assign_queries") as sp:
+                if on_card:
+                    probes = ex.select_probes(queries)
+                elif flt is None:
                     probes = assign_queries(seg.index, queries)
                 else:
                     # predicate pushdown: clusters with no allowed live row
                     # drop out of probe selection
                     probes = filtered_assign_queries(seg.index, queries, dead_arg)
+                sp.count(on_card=queries.shape[0] if on_card else 0)
             # the placement policy's cluster-hotness EWMA sees every
             # segment's probe selection
             self.data.note_probes(seg.seg_id, probes)
             if seg is primary:
                 self._recent_probes.append(probes)
-            if backend == "spmd":
-                res = self._executor_for(st, prec).search_batch(
-                    queries, k=k, probes=probes, dead_rows=dead_arg
-                )
+            if ex is not None:
+                res = ex.search_batch(queries, k=k, probes=probes, dead_rows=dead_arg)
             elif prec == "int8":
                 res = two_stage_search(
                     seg.index, queries, k=k, probes=probes,

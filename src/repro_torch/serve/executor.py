@@ -70,7 +70,7 @@ from repro_torch.core.pipeline import (
     ring_chunk_search,
 )
 from repro_torch.core.pruning import prewarm_tau
-from repro_torch.core.search import rerank_exact
+from repro_torch.core.search import kernel_assign_queries, rerank_exact
 from repro_torch.core.router import load_aware_assignment, ring_offsets
 from repro_torch.core.types import PartitionPlan, SearchResult
 from repro_torch.kernels import topk_update
@@ -269,6 +269,7 @@ class SpmdExecutor:
         self.prefetch_staged = 0
         self.upload_ms = 0.0
         self._list_rows: Optional[np.ndarray] = None    # rows a list, while tracing
+        self._centroids: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     def warmup(self, k: Optional[int] = None, nprobe=None):
         """Build and run every (qb, cap) bucket once, for each probe-table
@@ -492,6 +493,21 @@ class SpmdExecutor:
                 old.buf.held = False
 
     # ------------------------------------------------------------- serving
+    def select_probes(self, queries: np.ndarray) -> np.ndarray:
+        """The index's ``nprobe`` nearest centroids per query, chosen on
+        the executor's device by the port's own distance and top-K kernels
+        (:func:`~repro_torch.core.search.kernel_assign_queries`): the table
+        ``assign_queries`` gives, [NQ, nprobe] int32 ascending, up to f32
+        rounding. The centroids and their squared norms are uploaded at
+        the first call and kept; the batch's query copy, distances and
+        running lists are freed before this returns."""
+        if self._centroids is None:
+            c = torch.as_tensor(self.index.centers).to(self.device)
+            self._centroids = (c, (c * c).sum(1))
+        q = torch.as_tensor(np.ascontiguousarray(queries, np.float32)).to(self.device)
+        return kernel_assign_queries(*self._centroids, q,
+                                     self.index.cfg.nprobe).cpu().numpy()
+
     def search_batch(
         self,
         queries: np.ndarray,

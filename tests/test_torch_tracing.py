@@ -119,6 +119,7 @@ def test_one_batch_gives_the_tree(data, how):
             p = by_id[s.parent]
             assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns, (s, p)
     assert by_name["engine.search_batch"].counts == {"segments": 1}
+    assert by_name["engine.assign_queries"].counts == {"on_card": 0}
     ex = by_name["executor.search_batch"].counts
     assert ex["qb"] == 32 and ex["step_built"] is False
     assert 0 < ex["pairs_needed"] <= ex["pairs_scored"]
