@@ -422,7 +422,12 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
     cluster_ids/row_ids [V, cap] (cap = ``scfg.cap``), q_blk [qb, D_pad]
     f32, probes [qb, P]
     i32, tau0 [qb] f32, all on one device. Returns (scores [qb, K],
-    ids [qb, K] i32, stats [2] int64 = (tiles skipped, tiles scored)).
+    ids [qb, K] i32, stats [4] int64 = (tiles skipped, tiles scored,
+    tiles after mask, tiles stopped)). The last two count stages t ≥ 1
+    only: the tiles the probe mask left live, and those of them the τ
+    test had emptied by their stage (the early stop across dimension
+    blocks); both are 0 at ``d_blocks`` 1 and the second with pruning
+    off. They stay on the device with the rest.
 
     ``precision="int8"``: x_blk/q_blk carry int8 codes, xn2_blk the
     pre-scaled s²·Σcode² norms and ``scale2`` [B] each block's s². The
@@ -488,13 +493,15 @@ def ring_chunk_search(scfg: SpmdConfig, x_blk, xn2_blk, cluster_ids, row_ids,
         shard_i.append(torch.cat(grp_i))
 
     gs, gi = merge_parts(shard_s, shard_i, K)
-    skipped = (torch.cat(skips).sum() if skips
-               else torch.zeros((), dtype=torch.int64, device=dev))
-    total = sum(int(s.numel()) for s in skips)
+    # [pass, stage, tile]; a tile the mask left live at stage 0 and the
+    # τ test emptied before stage t ≥ 1 is the early stop between blocks
+    skip = torch.stack(skips).view(-1, B, skips[0].numel()).to(torch.int64)
+    live = 1 - skip[:, :1]
     # a fill, not a copy from the host: a blocking copy would wait here for
     # the whole ring, inside ``ring.enqueue``, instead of at the caller's read
-    stats = torch.stack([skipped.to(torch.int64),
-                         torch.full((), total, dtype=torch.int64, device=dev)])
+    stats = torch.stack([skip.sum(),
+                         torch.full((), skip.numel(), dtype=torch.int64, device=dev),
+                         live.sum() * (B - 1), (skip[:, 1:] * live).sum()])
     return gs, gi, stats
 
 
@@ -548,7 +555,7 @@ def make_device_fn(scfg: SpmdConfig):
                 scfg, res["x_blk"], res["xn2_blk"], res["cluster_ids"], res["row_ids"],
                 args["queries"], args["probes"], args["tau0"], scale2=res.get("scale2")))
         scores, ids = merge_parts([o[0] for o in outs], [o[1] for o in outs], scfg.k)
-        return scores, ids, torch.stack([o[2] for o in outs]).sum(0)
+        return scores, ids, torch.stack([o[2][:2] for o in outs]).sum(0)
 
     return device_fn
 

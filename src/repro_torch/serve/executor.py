@@ -261,6 +261,10 @@ class SpmdExecutor:
         self.wall_s = 0.0
         self.tile_skipped = 0
         self.tile_total = 0
+        # stages t ≥ 1: tiles the probe mask left live, and those of them
+        # the τ test emptied (the early stop across dimension blocks)
+        self.tiles_after_mask = 0
+        self.tiles_stopped = 0
         # host-tier counters (always 0 for a device-tier executor)
         self.cold_dispatches = 0
         self.bytes_streamed = 0
@@ -659,8 +663,11 @@ class SpmdExecutor:
         self.wall_s += dt
         self.tile_skipped += int(st[0])
         self.tile_total += int(st[1])
+        self.tiles_after_mask += int(st[2])
+        self.tiles_stopped += int(st[3])
         sp.count(qb=qb_b, cap=cap_b, step_built=self.compiles > compiles_before,
-                 pairs_scored=(int(st[1]) - int(st[0])) * bscfg.tile_m * bscfg.tile_n)
+                 pairs_scored=(int(st[1]) - int(st[0])) * bscfg.tile_m * bscfg.tile_n,
+                 tiles_after_mask=int(st[2]), tiles_stopped=int(st[3]))
         return SearchResult(
             ids=ids,
             scores=scores,
@@ -749,4 +756,6 @@ class SpmdExecutor:
             "tile_skipped": self.tile_skipped,
             "tile_total": self.tile_total,
             "tile_skip_frac": self.tile_skipped / max(self.tile_total, 1),
+            "tiles_after_mask": self.tiles_after_mask,
+            "tiles_stopped": self.tiles_stopped,
         }
