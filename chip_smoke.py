@@ -21,6 +21,15 @@ Phases (any failure exits non-zero without the final ``ok`` line):
    bytes/operations bound at the main path's shapes (CUDA events), with
    each kernel's grid size (``ctas``) and each distance kernel's time
    when no tile is dead.
+2b. The τ prewarm kernel (``prewarm_kernel``) at the served cells'
+   shapes: NQ 8,000 queries, 16 probes, 4 samples a list, nlist 1024,
+   D 128 and 960, f32 and bf16 rows, through executors at ``d_blocks`` 1
+   and 4 over a small index of those lists. τ0 of the card route must lie
+   within ``2 (D + 3) 2^-24 (‖q‖² + max ‖x‖²)`` of the plain version's on
+   the card (the same +inf), with repeated and -1 probes and tombstones
+   too; the kernel, the plain version and the host route are timed
+   (device ms by CUDA events), and one 8,000-query batch must launch the
+   kernel once and the plain version never.
 3. Serving, fp32: build a SIFT1M-shaped IVF index for the card (1M × 128
    fp32 rows, nlist 1024, nprobe 16, top-10; the k-means runs on the
    card, the rows stay in pinned host memory, and the card must hold
@@ -782,6 +791,104 @@ def time_kernels(dev, smi):
     return timed
 
 
+def prewarm_kernel(dev, smi, nq=8000, nlist=1024, nprobe=16, dims=(128, 960)):
+    """The τ prewarm kernel (``csrc/tau_prewarm.cu``) at the served cells'
+    shapes, through an executor's own sample table: checked against the
+    plain version on the card, timed beside it and beside the host route,
+    and one launch a served batch. Returns its first row (D 128, f32) with
+    the largest errors over every row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import HarmonyConfig
+    from repro_torch.core import assign_queries, build_ivf
+    from repro_torch.core.pruning import prewarm_tau
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.serve import ExecutorConfig, SpmdExecutor
+
+    rng = np.random.default_rng(31)
+    first = None
+    top = dict(max_abs_err=0.0, max_err_over_slack=0.0)   # over every row
+    for d in dims:
+        # lists of 0 to 9 rows around 1,024 centres: some hold fewer than
+        # the 4 samples, some none
+        cent = rng.normal(size=(nlist, d)).astype(np.float32)
+        x = np.repeat(cent, rng.integers(0, 10, size=nlist), axis=0)
+        x += 0.1 * rng.normal(size=x.shape).astype(np.float32)
+        index = build_ivf(x, HarmonyConfig(dim=d, nlist=nlist, nprobe=nprobe, topk=10),
+                          centers=cent, device=dev)
+        q = (cent[rng.integers(0, nlist, size=nq)]
+             + 0.3 * rng.normal(size=(nq, d))).astype(np.float32)
+        probes = assign_queries(index, q).astype(np.int32)
+        odd = probes.copy()                      # repeated and -1 probes
+        odd[::3, 1] = odd[::3, 0]
+        odd[::5, 2:4] = -1
+        dead = rng.random(index.nb) < 0.3
+        qn2 = (q.astype(np.float64) ** 2).sum(1)
+        for x_dtype in ("float32", "bfloat16"):
+            for B in (1, 4):
+                ex = SpmdExecutor(index, ExecutorConfig(d_blocks=B, chunk=2048,
+                                                        qb_buckets=(nq,), x_dtype=x_dtype),
+                                  device=dev)
+                smp = ex._samples
+                rows_dtype = torch.bfloat16 if x_dtype == "bfloat16" else None
+                xn2 = float((smp.table.double() ** 2).sum(1).max())
+                slack = 2 * (d + 3) * 2.0 ** -24 * (qn2 + xn2)
+                qt = torch.as_tensor(q).to(dev)
+                worst = worst_abs = 0.0
+                for pr, dr in ((probes, None), (odd, None), (probes, dead), (odd, dead)):
+                    got = prewarm_tau(index, q, pr, 10, rows_dtype=rows_dtype, samples=smp,
+                                      dead_rows=dr)
+                    live = (None if dr is None
+                            else torch.as_tensor(~dr[smp.rows]).to(dev))
+                    want = ref.tau_prewarm_ref(smp.table, smp.offs, qt,
+                                               torch.as_tensor(pr).to(dev), smp.s, 10,
+                                               live).cpu().numpy()
+                    assert np.array_equal(np.isinf(got), np.isinf(want)), "prewarm: +inf differs"
+                    fin = np.isfinite(want)
+                    err = np.abs(got - want.astype(np.float64))[fin]
+                    assert (err <= slack[fin]).all(), ("prewarm beyond rounding",
+                                                       float((err / slack[fin]).max()))
+                    if fin.any():
+                        worst = max(worst, float((err / slack[fin]).max()))
+                        worst_abs = max(worst_abs, float(err.max()))
+                pt = torch.as_tensor(probes).to(dev)
+                args = (smp.table, smp.offs, qt, pt, smp.s, 10)
+                (ms, call), (plain, plain_call) = (
+                    time_ms(lambda: ops.tau_prewarm(*args), reps=20),
+                    time_ms(lambda: ref.tau_prewarm_ref(*args), reps=5))
+                host = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    prewarm_tau(index, q, probes, 10, rows_dtype=rows_dtype)
+                    host.append((time.perf_counter() - t0) * 1e3)
+                ops.reset_launch_counts()
+                res = ex.search_batch(q)
+                counts = ops.launch_counts()
+                assert res.stats["splits"] == 1
+                assert counts["tau_prewarm"] == 1, counts
+                assert counts["tau_prewarm_ref"] == 0, counts
+                row_bytes = smp.table.element_size()
+                hbm = (smp.table.numel() * row_bytes + nq * d * 4 + nq * nprobe * 4
+                       + nq * 4 + (nlist + 1) * 4)
+                l2 = nq * nprobe * smp.s * d * row_bytes          # at most
+                row = dict(kernel="tau_prewarm", D=d, x_dtype=x_dtype, d_blocks=B, NQ=nq,
+                           P=nprobe, s=smp.s, table_rows=smp.table.shape[0], kernel_ms=ms,
+                           kernel_call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
+                           host_route_ms=host, bound_ms=hbm / HBM_BW * 1e3, bound_by="bytes",
+                           hbm_bytes=hbm, l2_read_bytes=l2, max_abs_err=worst_abs,
+                           max_err_over_slack=worst,
+                           launches_a_batch=counts["tau_prewarm"], card=smi)
+                log(**row)
+                first = first or row
+                top = dict(max_abs_err=max(top["max_abs_err"], worst_abs),
+                           max_err_over_slack=max(top["max_err_over_slack"], worst))
+                del ex, smp
+                torch.cuda.empty_cache()
+    return {**first, **top}
+
+
 def topk_dense(rng, m, c, k, part=None):
     """Scores [M, C] uniform on 0..100 with 20 % +inf and an ascending list
     [M, K] of rounded scores (numpy); ``part`` "first" / "later": the fused
@@ -1238,7 +1345,7 @@ def assert_path_on_kernels(counts, kernels, what):
     for name in kernels:
         assert counts[name] > 0, f"{what}: {name} never launched"
     for name in ("partial_distance_update_ref", "int8_partial_distance_update_ref",
-                 "running_topk_ref"):
+                 "running_topk_ref", "tau_prewarm_ref"):
         assert counts[name] == 0, f"{what}: the plain {name} ran"
 
 
@@ -3932,6 +4039,7 @@ def main() -> int:
     build_kernels()                                     # 1. build
     errs, _ = check_kernels(dev)                        # 2. kernels
     timed = time_kernels(dev, smi)
+    prewarm = prewarm_kernel(dev, smi)                  # 2b. the τ prewarm
 
     # ---------------------------------------------------------- 3. serving
     nb, nlist, ncomp = 1_000_000, 1024, 256
@@ -4002,7 +4110,8 @@ def main() -> int:
 
     served = {"partial_distance_update": 0, "int8_partial_distance_update": 0,
               "running_topk_update": 0, "partial_distance_update_bf16": 0,
-              "running_topk_update_large_k": 0, "running_topk_update_huge_k": 0}
+              "running_topk_update_large_k": 0, "running_topk_update_huge_k": 0,
+              "tau_prewarm": 0}
     fp32_mb = {}              # mesh → the fp32 executor's resident MB
     splits = {}               # (tier, mesh, M, K) → survivor histogram
     ring128 = {}              # mesh → the fp32 128-query batch's wall ms and launches
@@ -4019,6 +4128,8 @@ def main() -> int:
             res = ex.search_batch(q_all[lo:lo + n])
             after = ops.launch_counts()
             walls[n] = res.stats["wall_s"] * 1e6
+            # one prewarm launch a served part, on the card route
+            assert after["tau_prewarm"] - before["tau_prewarm"] == res.stats["splits"]
             if n == 128:
                 ring128[mesh] = dict(wall_ms=walls[n] / 1e3, launches=sum(
                     after[k] - before[k] for k in after))
@@ -4040,6 +4151,7 @@ def main() -> int:
         assert counts["int8_partial_distance_update"] == 0, "int8 kernel ran on fp32"
         assert counts["partial_distance_update_ref"] == 0, "plain distance ran"
         assert counts["running_topk_ref"] == 0, "plain top-K ran"
+        assert counts["tau_prewarm_ref"] == 0, "plain prewarm ran"
         for k in served:
             served[k] += counts[k]
         profile_128(ex, mesh, walls, "fp32")
@@ -4250,6 +4362,14 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
         ))
+    assert served["tau_prewarm"] > 0, "tau_prewarm: no launch on the served paths"
+    kernels.append(dict(
+        name="tau_prewarm", route="cuda", source="src/repro_torch/kernels/csrc/tau_prewarm.cu",
+        replaces="none (src/repro/core/pruning.py prewarm_tau is numpy)",
+        launches=served["tau_prewarm"], max_abs_err=prewarm["max_abs_err"],
+        max_err_over_slack=prewarm["max_err_over_slack"],
+        ms=prewarm["kernel_ms"], plain_ms=prewarm["plain_ms"], bound_ms=prewarm["bound_ms"],
+        bound_by=prewarm["bound_by"], library_ms="none"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -652,19 +652,34 @@ class Segment:
         return self.index.nb
 
 
+def prewarm_table_bytes(idx: IVFIndex) -> int:
+    """Bytes of the τ prewarm's sample table that an fp32 device-tier
+    executor keeps on the card when it prunes
+    (:class:`repro_torch.core.pruning.PrewarmSamples`): each list's first
+    ``min(size, prewarm_samples)`` rows at 4 bytes a value, and the
+    [nlist + 1] int32 offsets. The reference keeps no such table."""
+    rows = int(np.minimum(idx.sizes, idx.cfg.prewarm_samples).sum())
+    return 4 * (rows * int(idx.x.shape[1]) + idx.nlist + 1)
+
+
 def segment_device_bytes(seg: "Segment", precision: str = "fp32",
                          d_blocks: int = 1) -> int:
     """Bytes the executor keeps on the card for one sealed segment at
-    ``precision``, as the reference counts them: the packed rows (int8
+    ``precision``: as the reference counts them, the packed rows (int8
     codes, or 4 bytes a value), the per-dimension-block norms and the
-    packed cluster and row id columns. The currency of the placement
+    packed cluster and row id columns; and at fp32, where the index
+    prunes (L2), the τ prewarm's sample table (:func:`prewarm_table_bytes`),
+    which the reference does not keep. The currency of the placement
     budget: a ``device``-tier segment costs this much, a ``host``-tier one
     nothing. The fp32 corpus ``IVFIndex.x`` is host memory for every
     tier, in the port as in the reference."""
     idx = seg.index
     d = int(idx.x.shape[1])
     per_row = (d if precision == "int8" else 4 * d) + 4 * d_blocks + 8
-    return idx.nb * per_row
+    out = idx.nb * per_row
+    if precision == "fp32" and idx.cfg.enable_pruning and idx.cfg.metric == "l2":
+        out += prewarm_table_bytes(idx)
+    return out
 
 
 @dataclass(frozen=True)

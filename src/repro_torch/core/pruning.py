@@ -6,6 +6,12 @@ S_k² > τ ≥ (final kth-best distance), p can never enter the top-K. τ
 starts at the kth-best distance of a sample of real candidates, an upper
 bound, so pruning changes work and never results.
 
+The prewarm has two routes. The host route gathers each batch's sample
+rows from the host's ``index.x`` and scores them on the index's device.
+The card route (:class:`PrewarmSamples`, which a device-tier executor
+keeps) scores them out of a resident table of each list's sample rows
+with one launch of ``kernels/csrc/tau_prewarm.cu``.
+
 ``TopKHeap`` and ``partial_scores_block`` serve the host engine
 (``harmony_search``) and the host merge; they are numpy, as in the
 reference.
@@ -21,6 +27,8 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.core.index import IVFIndex
+from repro_torch.kernels import ops
+from repro_torch.kernels.tau_prewarm import MAX_W
 
 
 @dataclass
@@ -84,6 +92,34 @@ def exact_scores(x: torch.Tensor, q: torch.Tensor, metric: str = "l2"
     raise ValueError(metric)
 
 
+@dataclass
+class PrewarmSamples:
+    """The sample rows of the τ prewarm, resident on a device: each list's
+    first ``min(size, s)`` rows of ``index.x`` in index order, the rows the
+    host route samples, packed list after list (list c's are
+    ``table[offs[c]:offs[c + 1]]``, so the table never holds more rows than
+    the index), in the type the ring reads (bf16 rows rounded as the ring
+    sees them). ``rows`` keeps their packed-row positions on the host, for
+    the tombstones' live mask. :func:`~repro_torch.core.index.
+    prewarm_table_bytes` counts the table in the placement budget."""
+
+    table: torch.Tensor    # [T, D] f32 or bf16, T = Σ min(size, s)
+    offs: torch.Tensor     # [nlist + 1] int32
+    rows: np.ndarray       # [T] int64 packed rows of index.x
+    s: int
+
+    @classmethod
+    def build(cls, index: IVFIndex, s: int, dtype: torch.dtype,
+              device: torch.device) -> "PrewarmSamples":
+        take = np.minimum(index.sizes, s)
+        offs = np.concatenate([[0], np.cumsum(take)]).astype(np.int64)
+        rows = np.repeat(index.offsets[:-1] - offs[:-1], take) + np.arange(offs[-1])
+        table = index.x[torch.as_tensor(rows)]
+        return cls(table=table.to(dtype).to(device),
+                   offs=torch.as_tensor(offs.astype(np.int32)).to(device),
+                   rows=rows, s=s)
+
+
 def prewarm_tau(
     index: IVFIndex,
     q: np.ndarray,
@@ -93,6 +129,7 @@ def prewarm_tau(
     metric: str = "l2",
     dead_rows: Optional[np.ndarray] = None,
     rows_dtype: Optional[torch.dtype] = None,
+    samples: Optional[PrewarmSamples] = None,
 ) -> np.ndarray:
     """PrewarmHeap (Alg. 1, lines 1–5): exactly score the first
     ``samples_per_cluster`` rows of every probed cluster; the kth-smallest
@@ -107,7 +144,32 @@ def prewarm_tau(
     smaller than K). ``rows_dtype`` (bf16) scores the sampled rows as a
     ring over rows stored in that type sees them: rounded, then widened,
     so τ0 bounds the k-th distance in that metric.
+
+    With ``samples`` (L2 only) the card route runs instead: the queries
+    and the probe table are uploaded, and one kernel launch scores the
+    resident sample rows (``dead_rows`` becomes their live mask) and keeps
+    each query's k-th smallest; τ0 comes back as one [NQ] copy.
+    ``samples_per_cluster`` and ``rows_dtype`` must then be the table's
+    own. The kernel scores at most ``MAX_W // s`` probes a query: of a wider
+    table only the first ones are sampled, and the k-th smallest over fewer
+    real candidates is larger, still an upper bound, so pruning stays exact.
     """
+    if samples is not None:
+        if metric != "l2":
+            raise ValueError(f"the card's prewarm scores l2 only, not {metric!r}")
+        s = samples.s
+        if (samples_per_cluster, rows_dtype or torch.float32) != (s, samples.table.dtype):
+            raise ValueError(f"the sample table holds {s} rows a list in "
+                             f"{samples.table.dtype}, not {samples_per_cluster} in "
+                             f"{rows_dtype or torch.float32}")
+        dev = samples.table.device
+        live = (None if dead_rows is None
+                else torch.as_tensor(~dead_rows[samples.rows]).to(dev))
+        qt = torch.as_tensor(np.ascontiguousarray(q, np.float32)).to(dev)
+        pt = torch.as_tensor(np.ascontiguousarray(probes[:, : MAX_W // max(s, 1)],
+                                                  np.int32)).to(dev)
+        return ops.tau_prewarm(samples.table, samples.offs, qt, pt, s, k,
+                               live).cpu().numpy()
     nq = q.shape[0]
     take = np.minimum(index.sizes, samples_per_cluster)
     sample_rows_per_cluster = [

@@ -7,12 +7,13 @@ Nothing else chooses the route, and nothing falls back.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import distance, distance_int8, ref, topk_update
+from repro_torch.kernels import tau_prewarm as _tau_prewarm
 
 
 def partial_distance_update(
@@ -108,6 +109,23 @@ def masked_topk(scores: torch.Tensor, ids: torch.Tensor, k: int):
     return ref.masked_topk_ref(scores, ids, k)
 
 
+def tau_prewarm(
+    table: torch.Tensor,       # [T, D] f32 or bf16
+    offs: torch.Tensor,        # [nlist + 1] i32
+    q: torch.Tensor,           # [NQ, D] f32
+    probes: torch.Tensor,      # [NQ, P] i32
+    s: int,
+    k: int,
+    live: Optional[torch.Tensor] = None,     # [T] bool
+) -> torch.Tensor:
+    """τ0 [NQ] f32: the k-th smallest Σ(x − q)² over each query's live
+    sample rows of its distinct probed lists (+inf below k of them)."""
+    if table.is_cuda:
+        return _tau_prewarm.tau_prewarm(table, offs, q, probes, s, k, live)
+    _tau_prewarm.check(table, offs, q, probes, s, k, live)
+    return ref.tau_prewarm_ref(table, offs, q, probes, s, k, live)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches and plain-version calls since the last reset. A
     kernel's count takes every launch; ``partial_distance_update_bf16``,
@@ -125,10 +143,12 @@ def launch_counts() -> Dict[str, int]:
             topk_update.running_topk_update.large_k_launches,
         "running_topk_update_huge_k":
             topk_update.running_topk_update.huge_k_launches,
+        "tau_prewarm": _tau_prewarm.tau_prewarm.launches,
         "partial_distance_update_ref": ref.partial_distance_update_ref.calls,
         "int8_partial_distance_update_ref":
             ref.int8_partial_distance_update_ref.calls,
         "running_topk_ref": ref.running_topk_ref.calls,
+        "tau_prewarm_ref": ref.tau_prewarm_ref.calls,
     }
 
 
@@ -142,3 +162,5 @@ def reset_launch_counts() -> None:
     ref.partial_distance_update_ref.calls = 0
     ref.int8_partial_distance_update_ref.calls = 0
     ref.running_topk_ref.calls = 0
+    _tau_prewarm.tau_prewarm.launches = 0
+    ref.tau_prewarm_ref.calls = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CUDA kernels of the ring.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 They define the semantics the kernels must match, run the CPU path of
 ``kernels.ops``, and are what ``chip_smoke.py`` holds each kernel against
@@ -108,3 +108,39 @@ def running_topk_ref(scores, ids, run_s, run_i, k: int):
 
 
 running_topk_ref.calls = 0
+
+
+def tau_prewarm_ref(table, offs, q, probes, s: int, k: int, live=None):
+    """τ0 [NQ] f32: each query's k-th smallest score over the sample rows of
+    its probed lists, +inf where fewer than k rows were scored. List c's
+    rows are ``table[offs[c]:offs[c + 1]]`` (at most s of them). A probe < 0
+    or >= nlist is skipped, a probe equal to an earlier probe of the same
+    query is taken once, and the rows t of a list with ``live[t]`` (all rows
+    without ``live``) are scored as Σ_d (table[t, d] − q[d])² in f32 (bf16
+    rows widened first, exact): the host route of
+    ``core.pruning.prewarm_tau``, in the same arithmetic."""
+    tau_prewarm_ref.calls += 1
+    nlist = offs.shape[0] - 1
+    nq, p = probes.shape
+    inf = torch.full((nq,), float("inf"), dtype=torch.float32, device=q.device)
+    if nq == 0 or p * s < k or table.shape[0] == 0:
+        return inf
+    pr = probes.long()
+    earlier = torch.ones(p, p, dtype=torch.bool, device=pr.device).tril(-1)
+    repeat = ((pr[:, :, None] == pr[:, None, :]) & earlier).any(2)
+    valid = (pr >= 0) & (pr < nlist) & ~repeat                    # [NQ, P]
+    c = torch.where(valid, pr, 0)
+    o = offs.long()
+    lo = o[c]
+    rows = torch.arange(s, device=pr.device)
+    ok = valid[:, :, None] & (rows < (o[c + 1] - lo)[:, :, None])  # [NQ, P, s]
+    t = (lo[:, :, None] + rows).clamp(max=table.shape[0] - 1)
+    if live is not None:
+        ok &= live[t]
+    diff = table[t].float() - q[:, None, None, :]
+    sc = torch.where(ok, (diff * diff).sum(3), float("inf")).reshape(nq, p * s)
+    kth = torch.sort(sc, dim=1).values[:, k - 1]
+    return torch.where(ok.reshape(nq, -1).sum(1) >= k, kth, inf)
+
+
+tau_prewarm_ref.calls = 0

@@ -39,6 +39,13 @@ precisions:
   rows are rounded to bf16 (half the bytes) and the distance kernel's bf16
   route widens them to f32; queries, norms and sums stay f32, and the τ
   prewarm scores the rounded rows, so pruning is exact over them.
+* **τ prewarm** — a device-tier executor that prunes keeps each list's
+  first ``prewarm_samples`` rows on the card
+  (:class:`~repro_torch.core.pruning.PrewarmSamples`, packed, in the rows'
+  type, and counted in ``segment_device_bytes``) and seeds τ with one
+  kernel launch a batch over them; the host tier keeps nothing of a
+  demoted segment on the card, so its prewarm gathers the sample rows on
+  the host and uploads them.
 
 Exactness: padding adds rows whose cluster id is -1 (match no probe) and
 queries whose τ is -inf (everything prunes). Pruning is off for
@@ -69,7 +76,7 @@ from repro_torch.core.pipeline import (
     resident_arrays,
     ring_chunk_search,
 )
-from repro_torch.core.pruning import prewarm_tau
+from repro_torch.core.pruning import PrewarmSamples, prewarm_tau
 from repro_torch.core.search import kernel_assign_queries, rerank_exact
 from repro_torch.core.router import load_aware_assignment, ring_offsets
 from repro_torch.core.types import PartitionPlan, SearchResult
@@ -247,6 +254,14 @@ class SpmdExecutor:
             if pin:
                 self._side = torch.cuda.Stream(device=self.device)
         del arrays, packed                   # the host tier's device copies go
+        # the τ prewarm's sample rows, on the card with the corpus (the
+        # int8 tier and a non-pruning executor have no prewarm)
+        self._samples: Optional[PrewarmSamples] = None
+        if tier == "device" and self.prune and self.precision == "fp32":
+            self._samples = PrewarmSamples.build(
+                index, index.cfg.prewarm_samples,
+                torch.bfloat16 if self.cfg.x_dtype == "bfloat16" else torch.float32,
+                self.device)
         # host tier: candidate buffer sets per cap bucket, and the
         # prefetch queue (two slots, keyed on the gather table)
         self._cand_pool: Dict[int, list] = {}
@@ -602,12 +617,16 @@ class SpmdExecutor:
         # it); int8 stage 1 scores in the quantized metric, where an
         # fp32-space τ is no upper bound, so it starts at +inf
         if self.prune and not int8:
-            with tracing.span("executor.prewarm_tau"):
+            # the card route where the sample rows are resident (the
+            # device tier), else the host's gather
+            with tracing.span("executor.prewarm_tau") as tsp:
                 tau0 = prewarm_tau(self.index, queries, probes, k,
                                    self.index.cfg.prewarm_samples, self.metric,
                                    dead_rows=dead_rows,
                                    rows_dtype=(torch.bfloat16 if self.cfg.x_dtype == "bfloat16"
-                                               else None))
+                                               else None),
+                                   samples=self._samples)
+                tsp.count(on_card=nq if self._samples is not None else 0)
         else:
             tau0 = np.full((nq,), np.inf, np.float32)
         if sp.on:

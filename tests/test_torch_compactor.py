@@ -27,6 +27,7 @@ from repro.serve import HarmonyServer as RServer
 from repro_torch.checkpoint import Checkpointer, load_segmented_index, save_segmented_index
 from repro_torch.config import HarmonyConfig
 from repro_torch.core import SegmentedIndex, build_ivf
+from repro_torch.core.index import prewarm_table_bytes
 from repro_torch.serve import CompactionConfig, Compactor, ExecutorConfig, HarmonyServer
 from test_torch_engine import brute_topk
 from test_torch_segments import port_plane
@@ -196,8 +197,10 @@ def test_tombstone_aware_sizes_and_memory(anns):
     data = port_plane(ref)
     seg, rseg = data.segments[0], ref.segments[0]
     assert data.live_sizes(seg).sum() == ds.x.shape[0]
+    # the port's card also holds the τ prewarm's sample table (fp32, pruning)
+    table = prewarm_table_bytes(seg.index)
     mem0 = data.memory_bytes()
-    assert mem0 == ref.memory_bytes()
+    assert mem0 == ref.memory_bytes() + table > ref.memory_bytes()
     for plane in (data, ref):
         plane.delete(np.arange(50))
     assert data.live_sizes(seg).sum() == ds.x.shape[0] - 50
@@ -206,7 +209,7 @@ def test_tombstone_aware_sizes_and_memory(anns):
     for plane in (data, ref):
         plane.upsert([99_999], np.zeros((1, DIM), np.float32))
     assert data.memory_bytes() > mem0           # the delta buffer counts
-    assert data.memory_bytes() == ref.memory_bytes()
+    assert data.memory_bytes() == ref.memory_bytes() + table
     assert data.delta_len == 1
     assert data.dead_count_by_segment()[seg.seg_id] == 50
 

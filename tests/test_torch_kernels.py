@@ -398,9 +398,11 @@ def test_ops_on_cpu_use_plain_versions_only():
                       "partial_distance_update_bf16": 0,
                       "running_topk_update_large_k": 0,
                       "running_topk_update_huge_k": 0,
+                      "tau_prewarm": 0,
                       "partial_distance_update_ref": 1,
                       "int8_partial_distance_update_ref": 1,
-                      "running_topk_ref": 1}
+                      "running_topk_ref": 1,
+                      "tau_prewarm_ref": 0}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 

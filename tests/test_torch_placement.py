@@ -13,10 +13,12 @@ import torch
 from repro.core import SegmentedIndex as RSegmented
 from repro.serve import PlacementConfig as RPlacementConfig
 from repro.serve import device_bytes_by_segment as r_device_bytes
+from repro.serve import placement as r_placement
 from repro.serve import plan_placement as r_plan
 from repro_torch.checkpoint import Checkpointer, load_segmented_index, save_segmented_index
 from repro_torch.config import HarmonyConfig
 from repro_torch.core import SegmentedIndex, segment_bm25
+from repro_torch.core.index import prewarm_table_bytes
 from repro_torch.runtime.faults import FaultPlan, FaultSpec, InjectedFault, fault_scope
 from repro_torch.serve import (
     CompactionConfig,
@@ -69,7 +71,9 @@ def test_plan_placement_budget_keeps_hottest():
 
 
 def test_plan_placement_hysteresis_is_sticky():
-    _, data = _plane(nb=192, extra=192)      # equal sizes: equal costs
+    # equal sizes: equal costs (without pruning, so without the τ prewarm's
+    # sample table, whose size follows the lists')
+    _, data = _plane(nb=192, extra=192, cfg=CFG.replace(enable_pruning=False))
     s0, s1 = [s.seg_id for s in data.segments]
     costs = device_bytes_by_segment(data)
     assert costs[s0] == costs[s1]
@@ -124,7 +128,7 @@ def test_memory_report_counts_metadata_and_bm25():
 
 # ----------------------------------------------------- against the reference
 @pytest.mark.parametrize("precision,d_blocks", [("fp32", 1), ("int8", 2)])
-def test_plans_and_reports_equal_the_reference(precision, d_blocks):
+def test_plans_and_reports_equal_the_reference(precision, d_blocks, monkeypatch):
     """The same plane, hotness and budget give the reference's costs,
     plans and memory reports, at every budget from nothing to all. The
     fp32 rows are host bytes in both packages: the port keeps
@@ -148,10 +152,25 @@ def test_plans_and_reports_equal_the_reference(precision, d_blocks):
             plane.note_probes(sid, p)
         plane.set_tiers({2: "host"})
     assert data.segment_hotness() == ref.segment_hotness()
+    # at fp32 the port's executor also keeps the τ prewarm's sample table
+    # on the card, which the reference does not: its costs are the
+    # reference's plus that table, and the plans are the reference's
+    # knapsack over the port's costs
+    extra = {s.seg_id: prewarm_table_bytes(s.index) if precision == "fp32" else 0
+             for s in data.segments}
+    assert (precision == "fp32") == (sum(extra.values()) > 0)
+    r_costs = r_device_bytes(ref, precision, d_blocks)
     costs = device_bytes_by_segment(data, precision, d_blocks)
-    assert costs == r_device_bytes(ref, precision, d_blocks)
-    assert data.memory_report(precision, d_blocks) == ref.memory_report(precision, d_blocks)
-    assert data.memory_bytes() == ref.memory_bytes()
+    assert costs == {sid: c + extra[sid] for sid, c in r_costs.items()}
+    on_card = sum(b for sid, b in extra.items() if data.tier_of(sid) == "device")
+    r_rep = ref.memory_report(precision, d_blocks)
+    assert data.memory_report(precision, d_blocks) == {
+        **r_rep, "device_bytes": r_rep["device_bytes"] + on_card,
+        "total_bytes": r_rep["total_bytes"] + on_card}
+    assert data.memory_bytes() == ref.memory_bytes() + sum(
+        prewarm_table_bytes(s.index) for s in data.segments if data.tier_of(s.seg_id) == "device")
+    monkeypatch.setattr(r_placement, "device_bytes_by_segment", lambda d, p, b: {
+        sid: c + extra[sid] for sid, c in r_device_bytes(d, p, b).items()})
     total = sum(costs.values())
     for frac in (0.0, 0.1, 0.25, 0.5, 0.75, 1.0, None):
         budget = None if frac is None else int(frac * total)

@@ -37,8 +37,6 @@ TREE = {
     "executor.search_batch": "engine.search_batch",
     "executor.gather_rows": "executor.search_batch",
     "executor.prewarm_tau": "executor.search_batch",
-    "tau.gather": "executor.prewarm_tau",
-    "tau.upload": "executor.prewarm_tau",
     "executor.upload": "executor.search_batch",
     "ring.enqueue": "executor.search_batch",
     "executor.wait": "executor.search_batch",
